@@ -6,7 +6,7 @@ Phases, one line each, any failure raising (exit code != 0):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the CUDA gather kernel from ``neuray_tpu_torch/csrc`` with nvcc;
   3. hold the kernel to its plain PyTorch twin on the card at the render
-     path's three shapes (coords partly out of range), f32 and bf16, and
+     path's four shapes (coords partly out of range), f32 and bf16, and
      time both with CUDA events;
   4. render a full 800x800 novel view of the synthetic sphere from 8
      reference views, 64 coarse + 64 fine samples, with the trained
@@ -15,7 +15,14 @@ Phases, one line each, any failure raising (exit code != 0):
      ground-truth image >= 24 dB;
   5. 2048 rays through the image centre again from the same encoded
      maps, on the card (kernel) and on the CPU (plain PyTorch): each pass
-     agrees to 1e-4 on the same inputs (``in_situ``).
+     agrees to 1e-4 on the same inputs (``in_situ``);
+  6. the shipped fast eval profile (``configs/gen/neuray_gen_depth_fast
+     .yaml``: half-grid init diff, self-auditing probe-focused render,
+     probe every 2nd pixel) on the same scene, weights and query:
+     warm-up frame, then a timed frame (encode + ``render_frame_probe_auto``)
+     whose gather launches must equal what its chunk counts imply;
+     GT-PSNR >= 24 dB; then 2048 kept rays through the image centre,
+     card against CPU inside the probe's windows, each pass to 1e-4.
 The line before the last is a JSON record of the kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 before printing anything.
@@ -36,6 +43,16 @@ CHUNK = 1024
 DN = 64
 N_CHECK = 2048
 PSNR_FLOOR = 24.0
+# configs/gen/neuray_gen_depth_fast.yaml as RenderConfig fields (the
+# card's machine has no yaml; tests/test_torch_port_drivers.py holds this
+# to RenderConfig.from_cfg of the parsed file)
+FAST_PROFILE = dict(
+    use_hierarchical_sampling=True, use_vis=False, fine_use_vis=False,
+    init_diff_scale=2, ray_batch_num=CHUNK, probe_sample_num=16,
+    focus_sample_num=16, focus_fine_sample_num=32)
+# the profile's render_frame_probe_auto arguments (skip_empty_threshold,
+# skip_auto_tol, probe_dilate, probe_stride)
+FAST_ARGS = dict(threshold=0.01, tol=0.02, dilate=1, probe_stride=2)
 
 
 def log(*args):
@@ -64,7 +81,9 @@ def check_kernel(GA, dev):
     shapes = [("feats 1/4 res, per chunk", RFN, H // 4, W // 4, 64,
                CHUNK * DN),
               ("rgb full res, per chunk", RFN, H, W, 3, CHUNK * DN),
-              ("diff [depth|rgb], per encode", RFN, H, W, 4, RFN * H * W)]
+              ("diff [depth|rgb], per encode", RFN, H, W, 4, RFN * H * W),
+              ("diff [depth|rgb], per half-grid encode", RFN, H // 2,
+               W // 2, 4, RFN * (H // 2) * (W // 2))]
     worst, feat_ms = 0.0, None
     for name, v, fh, fw, c, p in shapes:
         coords = torch.rand((v, p, 2), generator=g, device=dev)
@@ -102,11 +121,11 @@ def psnr(img, gt):
     return -10.0 * np.log10(mse)
 
 
-def in_situ(R, renderer, ref_c, que, n_rays):
+def in_situ(R, renderer, ref_c, que, idx, windows=None):
     """The kernel path in place against the plain path on the CPU, from
-    the same encoded maps, on N_CHECK rays through the image centre (the
-    first rows of the frame are background, black in both paths, and
-    would test nothing).
+    the same encoded maps, on the rays idx (numpy): the exact passes, or
+    with ``windows`` = (near, far) [1, rn] the focused passes inside
+    them.
 
     Each pass's colours are held to 1e-4 on the same inputs: the coarse
     pass from the same depths, the fine pass from the same (the card's)
@@ -117,8 +136,6 @@ def in_situ(R, renderer, ref_c, que, n_rays):
     ~1e-3 and their colours by up to a few 1e-3 (3.4e-3 measured on
     this scene)."""
     from neuray_tpu_torch.ops import sampling as S
-    start = (n_rays - N_CHECK) // 2
-    coords = que["coords"][:, start:start + N_CHECK]
     cpu_renderer = copy.deepcopy(renderer).cpu()
     ref_cpu = {k: v.cpu() for k, v in ref_c.items()}
     worst = {"coarse pixel_colors_nr": 0.0, "coarse hit_prob_nr": 0.0,
@@ -128,32 +145,136 @@ def in_situ(R, renderer, ref_c, que, n_rays):
     def diff(key, a, b):
         worst[key] = max(worst[key], (a.cpu() - b).abs().max().item())
 
+    def cpu(x):
+        return None if x is None else x.cpu()
+
     with torch.inference_mode():
-        for chunk in R.chunk_coords(coords, CHUNK)[0]:
-            q_gpu = dict(que, coords=chunk)
+        for part in np.array_split(idx, -(-idx.size // CHUNK)):
+            q_gpu = R._take_rays(que, part)
             q_cpu = {k: v.cpu() for k, v in q_gpu.items()}
-            depth, _ = S.sample_depth(q_gpu["depth_range"], 1, CHUNK, DN)
-            c_gpu = renderer._render_by_depth(depth, q_gpu, ref_c, False)
-            c_cpu = cpu_renderer._render_by_depth(depth.cpu(), q_cpu,
-                                                  ref_cpu, False)
+            if windows is None:
+                depth, _ = S.sample_depth(q_gpu["depth_range"], 1, part.size,
+                                          DN)
+                pos = None
+            else:
+                near, far = (torch.from_numpy(w[:, part]).to(
+                    que["coords"].device) for w in windows)
+                depth, pos = renderer.focus_depths(q_gpu, near, far)
+            c_gpu = renderer._render_by_depth(depth, q_gpu, ref_c, False, pos)
+            c_cpu = cpu_renderer._render_by_depth(depth.cpu(), q_cpu, ref_cpu,
+                                                  False, cpu(pos))
             for key in ("pixel_colors_nr", "hit_prob_nr"):
                 diff("coarse " + key, c_gpu[key], c_cpu[key])
-            fine = S.sample_fine_depth(depth, c_gpu["hit_prob_nr"],
-                                       q_gpu["depth_range"], DN)
-            f_gpu = renderer._render_by_depth(fine, q_gpu, ref_c, True)
+            if windows is None:
+                fine = renderer._fine_depth(depth, c_gpu["hit_prob_nr"],
+                                            q_gpu["depth_range"], DN)
+                pos = None
+                e2e_cpu = cpu_renderer.render_chunk(ref_cpu, q_cpu)
+            else:
+                fine, pos = renderer.focus_fine_depths(
+                    q_gpu, depth, c_gpu["hit_prob_nr"])
+                e2e_cpu = cpu_renderer.render_chunk_focus(
+                    ref_cpu, q_cpu, near.cpu(), far.cpu())
+            f_gpu = renderer._render_by_depth(fine, q_gpu, ref_c, True, pos)
             f_cpu = cpu_renderer._render_by_depth(fine.cpu(), q_cpu, ref_cpu,
-                                                  True)
+                                                  True, cpu(pos))
             diff("fine pixel_colors_nr_fine", f_gpu["pixel_colors_nr"],
                  f_cpu["pixel_colors_nr"])
-            e2e_cpu = cpu_renderer.render_chunk(ref_cpu, q_cpu)
             diff("end-to-end pixel_colors_nr_fine", f_gpu["pixel_colors_nr"],
                  e2e_cpu["pixel_colors_nr_fine"])
-    log(f"in situ: {N_CHECK} rays from #{start}, card vs CPU max_abs_err: "
-        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    what = "exact" if windows is None else "focused"
+    log(f"in situ ({what}): {idx.size} rays from #{idx[0]}, card vs CPU "
+        "max_abs_err: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     held = {k: v for k, v in worst.items() if "pixel_colors" in k
             and not k.startswith("end")}
     if not all(v <= 1e-4 for v in held.values()):
         raise RuntimeError(f"card and CPU passes differ: {held}")
+
+
+def expected_fast_launches(out, n_rays, n_probe):
+    """Gather launches implied by ``render_frame_probe_auto``'s own chunk
+    counts: 1 for the encode's half-grid diff gather, and 2 (rgb, then
+    the 64-ch map) per chunk pass. Per audit rung: the strided probe over
+    n_probe rays, the false-skip audit over min(skipped, 2048) rays and,
+    where it ran, the window audit over min(kept, 1024) rays. Then the
+    focused render, 2 passes over the kept rays, or on fallback the exact
+    coarse pass over every ray and the fine pass over the kept ones."""
+    def chunks(n):
+        return -(-n // CHUNK)
+
+    passes = 0
+    for rung in out["audit_trail"]:
+        kept = round(rung["kept_fraction"] * n_rays)
+        passes += chunks(n_probe) + chunks(min(n_rays - kept, 2048))
+        if rung["window_clip_db"] is not None:
+            passes += chunks(min(kept, 1024))
+    if out["fallback"] is None:
+        passes += 2 * chunks(out["kept_rays"])
+    else:
+        passes += chunks(n_rays) + chunks(out["kept_rays"])
+    return 1 + 2 * passes
+
+
+def fast_profile(R, GA, renderer, ref, que, gt, full_img):
+    """Phase 6. Returns the gather launches of its timed frame."""
+    fast = R.NeurayRenderer(R.RenderConfig(**FAST_PROFILE))
+    fast.load_state_dict(renderer.state_dict())
+    fast = fast.to(ref["imgs"].device).eval()
+    n_rays = que["coords"].shape[1]
+    stride = FAST_ARGS["probe_stride"]
+    n_probe = -(-H // stride) * -(-W // stride)
+
+    def frame():
+        t0 = time.perf_counter()
+        ref_c = R.encode_ref(fast, ref)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = R.render_frame_probe_auto(fast, ref_c, que, image_hw=(H, W),
+                                        focus=True, **FAST_ARGS)
+        torch.cuda.synchronize()
+        return ref_c, out, t0, t1, time.perf_counter()
+
+    t0 = time.perf_counter()
+    frame()
+    log(f"fast profile warm-up frame: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    GA.LAUNCHES = 0
+    ref_c, out, t0, t1, t2 = frame()
+    launches = GA.LAUNCHES
+    expected = expected_fast_launches(out, n_rays, n_probe)
+    for k in ("pixel_colors_nr", "pixel_colors_nr_fine"):
+        if out[k].shape != (1, n_rays, 3) or not np.isfinite(out[k]).all():
+            raise RuntimeError(f"fast profile {k}: shape {out[k].shape} or "
+                               "not finite")
+    img = out["pixel_colors_nr_fine"][0].reshape(H, W, 3)
+    frame_psnr = psnr(img, gt)
+    log(f"fast profile frame: {n_rays} rays, encode {t1 - t0:.3f} s, "
+        f"probe + audits + render {t2 - t1:.3f} s = "
+        f"{n_rays / (t2 - t1):.1f} rays/s ({n_rays / (t2 - t0):.1f} rays/s "
+        f"with the encode), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, gather "
+        f"launches {launches} (expected {expected})")
+    log(f"fast profile audit: kept {out['kept_rays'] / n_rays:.4f} of the "
+        f"rays, probe_sample_num {out['probe_sample_num']}, false_skip_rate "
+        f"{out['false_skip_rate']:.5f}, window_clip_db "
+        f"{out.get('window_clip_db')}, fallback {out['fallback']}, "
+        f"audit_trail {json.dumps(out['audit_trail'])}")
+    log(f"fast profile quality: GT-PSNR fine {frame_psnr:.3f} dB, "
+        f"PSNR against the full frame {psnr(img, full_img):.3f} dB")
+    if launches != expected:
+        raise RuntimeError(f"gather kernel launched {launches} times in the "
+                           f"fast profile frame, expected {expected}")
+    if not frame_psnr >= PSNR_FLOOR:
+        raise RuntimeError(f"fast profile GT-PSNR {frame_psnr:.3f} dB < "
+                           f"{PSNR_FLOOR}")
+
+    keep = np.nonzero(out["keep_mask"])[0]
+    start = max(0, (keep.size - N_CHECK) // 2)
+    probe = R._with_probe_sample_num(fast, out["probe_sample_num"])
+    _, near, far = R._strided_focus_probe(
+        probe, ref_c, que, FAST_ARGS["threshold"], (H, W), stride)
+    in_situ(R, fast, ref_c, que, keep[start:start + N_CHECK], (near, far))
+    return launches
 
 
 def main():
@@ -242,7 +363,10 @@ def main():
     if not frame_psnr >= PSNR_FLOOR:
         raise RuntimeError(f"GT-PSNR {frame_psnr:.3f} dB < {PSNR_FLOOR}")
 
-    in_situ(R, renderer, ref_c, que, n_rays)
+    in_situ(R, renderer, ref_c, que,
+            np.arange(N_CHECK) + (n_rays - N_CHECK) // 2)
+
+    launches += fast_profile(R, GA, renderer, ref, que, gt, img)
 
     log(json.dumps({"kernels": [{
         "name": "gather_bilinear_border", "route": "cuda",

@@ -32,9 +32,11 @@ class DefaultAggregationNet(nn.Module):
         self.prob_embed_1 = nn.Linear(neuray_dim, neuray_dim)
         self.agg_impl = IBRNetWithNeuRay(neuray_dim, n_samples=sample_num)
 
-    def forward(self, prj: Dict[str, torch.Tensor], que_dir: torch.Tensor):
+    def forward(self, prj: Dict[str, torch.Tensor], que_dir: torch.Tensor,
+                pos_stride: int = 1, pos: torch.Tensor | None = None):
         """prj fields [rfn, qn, rn, dn, *]: ray_feats, hit_prob, vis, rgb,
-        dir, mask, img_feats; que_dir [qn, rn, dn, 3].
+        dir, mask, img_feats; que_dir [qn, rn, dn, 3]; pos_stride and
+        pos [qn, rn, dn]: the attention positions (``IBRNetWithNeuRay``).
         Returns density [qn, rn, dn], colors [qn, rn, dn, 3]."""
         hit_prob_val = (prj["hit_prob"] - 0.5) * 2
         vis_val = (prj["vis"] - 0.5) * 2
@@ -49,6 +51,9 @@ class DefaultAggregationNet(nn.Module):
         img_feats = torch.cat([prj["rgb"], prj["img_feats"]], dim=-1)
         img_feats = img_feats.reshape(rfn, qn * rn, dn, -1)
 
-        outs = self.agg_impl(img_feats, emb, dir_diff, valid_mask)
+        if pos is not None:
+            pos = pos.reshape(qn * rn, dn)
+        outs = self.agg_impl(img_feats, emb, dir_diff, valid_mask,
+                             pos_stride, pos)
         return (outs[..., 3].reshape(qn, rn, dn),
                 outs[..., :3].reshape(qn, rn, dn, 3))

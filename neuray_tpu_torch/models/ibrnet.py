@@ -25,6 +25,15 @@ def sinusoid_pos_encoding(d_hid: int, n_samples: int) -> np.ndarray:
     return table[None].astype(np.float32)
 
 
+def sinusoid_pos_at(d_hid: int, pos: torch.Tensor) -> torch.Tensor:
+    """The sinusoid table's formula at fractional positions: pos [..., dn]
+    -> [..., dn, d_hid]; integer positions give the table's rows."""
+    hid = torch.arange(d_hid, device=pos.device)
+    denom = torch.pow(10000.0, (2 * (hid // 2) / d_hid).float())
+    angle = pos[..., None] / denom
+    return torch.where(hid % 2 == 0, torch.sin(angle), torch.cos(angle))
+
+
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head self-attention with residual (LayerNorm eps
     1e-6). Q, K and V come from one packed projection of the input."""
@@ -138,7 +147,13 @@ class IBRNetWithNeuRay(nn.Module):
         self.out_geometry_fc = _Seq(16, (16, 1), "relu")
         self.rgb_fc = _Seq(32 + 1 + 4, (16, 8, 1), "none")
 
-    def forward(self, rgb_feat, neuray_feat, ray_diff, mask):
+    def forward(self, rgb_feat, neuray_feat, ray_diff, mask,
+                pos_stride: int = 1, pos: torch.Tensor | None = None):
+        """pos_stride: a dn-sample call takes the attention positions a
+        (dn * pos_stride)-sample call gives its every pos_stride-th
+        sample (the reduced-sample probe). pos: explicit per-ray
+        fractional positions [b, dn] (the focused render); overrides
+        pos_stride."""
         rgb_in = rgb_feat[..., :3]
         rgb_feat = rgb_feat + self.ray_dir_fc(ray_diff)
 
@@ -162,9 +177,14 @@ class IBRNetWithNeuRay(nn.Module):
         globalfeat = self.geometry_fc(globalfeat)              # b,dn,16
         num_valid_obs = mask.sum(dim=0)                        # b,dn,1
 
-        dn = globalfeat.shape[1]
-        table = sinusoid_pos_encoding(16, max(self.n_samples, dn))[:, :dn]
-        globalfeat = globalfeat + torch.from_numpy(table).to(globalfeat)
+        if pos is not None:
+            globalfeat = globalfeat + sinusoid_pos_at(16, pos).to(globalfeat)
+        else:
+            dn = globalfeat.shape[1]
+            table = sinusoid_pos_encoding(
+                16, max(self.n_samples, dn * pos_stride))[:, ::pos_stride]
+            globalfeat = globalfeat + torch.from_numpy(
+                table[:, :dn]).to(globalfeat)
         attn_mask = (num_valid_obs > 1).to(globalfeat.dtype)
         globalfeat = self.ray_attention(globalfeat, mask=attn_mask)
         sigma = self.out_geometry_fc(globalfeat)

@@ -1,5 +1,5 @@
 """Depth init net: raw visibility features G' per reference view (port of
-``neuray_tpu/models/init_net.py``, ``diff_scale=1`` only).
+``neuray_tpu/models/init_net.py``).
 
 It normalizes the estimated metric depth into [0, 1] inverse depth,
 computes cross-view rgb/depth consistency features by unprojecting each
@@ -97,15 +97,43 @@ def get_diff_feats(imgs: torch.Tensor, depth_norm: torch.Tensor,
     return out.reshape(rfn, h, w, 8)
 
 
+def upsample_half_pixel(x: torch.Tensor, s: int, h: int,
+                        w: int) -> torch.Tensor:
+    """Bilinear upsample of x [v, h', w', c] by s to [v, h, w, c] (h <= s*h',
+    w <= s*w') with half-pixel centres: output o samples input
+    (o + 0.5) / s - 0.5, clamped to the map at both ends. This is what
+    ``jax.image.scale_and_translate(scale=s, translation=0,
+    method="linear")`` computes in the JAX package (its comment there
+    calls it corner-aligned; the arithmetic is half-pixel)."""
+    up = F.interpolate(nhwc_to_nchw(x), scale_factor=s, mode="bilinear",
+                       align_corners=False, recompute_scale_factor=False)
+    return nchw_to_nhwc(up[..., :h, :w])
+
+
+def get_diff_feats_subgrid(imgs: torch.Tensor, depth_norm: torch.Tensor,
+                           depth_range: torch.Tensor, poses: torch.Tensor,
+                           Ks: torch.Tensor, s: int) -> torch.Tensor:
+    """``get_diff_feats`` on the 1/s pixel subgrid, rfn^2*h*w/s^2 gathers
+    instead of rfn^2*h*w, upsampled back to [rfn, h, w, 8] by
+    ``upsample_half_pixel``. Subgrid pixel i is original pixel s*i, so
+    K' = diag(1/s, 1/s, 1) K."""
+    scale = torch.tensor([1.0 / s, 1.0 / s, 1.0], device=Ks.device)
+    diff = get_diff_feats(imgs[:, ::s, ::s], depth_norm[:, ::s, ::s],
+                          depth_range, poses, Ks * scale[:, None])
+    return upsample_half_pixel(diff, s, *imgs.shape[1:3])
+
+
 class DepthInitNet(nn.Module):
     """ref imgs [rfn, h, w, 3] + estimated metric depth [rfn, h, w, 1]
-    -> G' [rfn, h/4, w/4, 32]."""
+    -> G' [rfn, h/4, w/4, 32].
+
+    diff_scale s > 1 computes the cross-view diff features on the 1/s
+    pixel subgrid (``get_diff_feats_subgrid``), an eval-time saving of
+    the encode; s = 1 is exact."""
 
     def __init__(self, diff_scale: int = 1):
         super().__init__()
-        if diff_scale != 1:
-            raise NotImplementedError(
-                "DepthInitNet supports diff_scale=1 only so far")
+        self.diff_scale = diff_scale
         self.res_net = ResEncoder()
         self.depth_skip_0 = nn.Conv2d(1, 8, 2, 2)
         self.depth_skip_1 = nn.Conv2d(8, 16, 2, 2)
@@ -115,7 +143,11 @@ class DepthInitNet(nn.Module):
         imgs, depth = ref["imgs"], ref["depth"]
         depth_range, poses, Ks = ref["depth_range"], ref["poses"], ref["Ks"]
         depth_n = extract_depth_for_init(depth_range, depth)
-        diff = get_diff_feats(imgs, depth_n, depth_range, poses, Ks)
+        if self.diff_scale > 1:
+            diff = get_diff_feats_subgrid(imgs, depth_n, depth_range, poses,
+                                          Ks, self.diff_scale)
+        else:
+            diff = get_diff_feats(imgs, depth_n, depth_range, poses, Ks)
         feats = nhwc_to_nchw(self.res_net(
             torch.cat([imgs, depth_n, diff], dim=-1)))
         skip = F.relu(self.depth_skip_0(nhwc_to_nchw(depth_n)))

@@ -1,5 +1,6 @@
 """The NeuRay generalization renderer (port of
-``neuray_tpu/models/renderer.py``: the exact coarse+fine render).
+``neuray_tpu/models/renderer.py``): the exact coarse+fine render and the
+probe-driven eval drivers.
 
 Per scene, ``encode_ref`` runs the depth init net, the image encoder and
 the vis encoder once and packs ``[ray_feats | img_feats]`` into one
@@ -10,15 +11,33 @@ visibility mixture, aggregates across views and composites; then the
 same again at importance-resampled fine depths. ``render_full`` runs
 the encode and the chunk loop under ``torch.inference_mode()``.
 
+The eval drivers decide on the host which rays to render. A probe pass
+at ``probe_sample_num`` samples scores every ray (``probe_chunk``) and,
+for the focused render, also narrows its depth window
+(``probe_chunk_focus``); only the kept rays go through a chunk loop, and
+skipped rays are 0 (``render_frame_probe_skip``,
+``render_frame_probe_focus``). ``render_frame_skip_empty`` gates the
+fine pass on the exact coarse pass instead. ``render_frame_probe_auto``
+audits the probe against that exact gate on a random sample of rays
+(``estimate_false_skip``, ``estimate_window_clip``), doubles the probe's
+samples when the audit fails, and falls back to the exact gate past
+``max_probe_sample_num``. The JAX package pads kept rays into buckets of
+chunks for jit's static shapes; here they go straight to the chunk loop,
+whose last chunk ``chunk_coords`` pads, and no kept ray's output depends
+on the padding.
+
 Dicts keep the JAX package's layouts and key names: ref fields
 [rfn, h, w, c] / [rfn, 3, 4] / [rfn, 3, 3] / [rfn, 2], que fields
 coords [qn, rn, 2], poses, Ks, depth_range; outputs [qn, rn, ...].
+The frame drivers take one query view (qn = 1) and return numpy arrays.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Iterable
+from typing import Any, Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -79,12 +98,30 @@ class RenderConfig:
     use_bf16: bool = False
     gather_quant: str = "none"
 
+    @classmethod
+    def from_cfg(cls, cfg: Dict[str, Any]) -> "RenderConfig":
+        """Build from a reference-style flat cfg dict (a parsed YAML of
+        ``configs/``); keys that name no field are ignored."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in cfg.items() if k in known}
+        dd = cfg.get("dist_decoder_cfg", {}) or {}
+        fdd = cfg.get("fine_dist_decoder_cfg", {}) or {}
+        if "use_vis" in dd:
+            kwargs["use_vis"] = dd["use_vis"]
+        kwargs["fine_use_vis"] = fdd.get(
+            "use_vis", kwargs.get("use_vis", True))
+        inc = cfg.get("init_net_cfg", {}) or {}
+        if "cost_volume_sn" in inc:
+            kwargs["cost_volume_sn"] = inc["cost_volume_sn"]
+        if "diff_scale" in inc:
+            kwargs["init_diff_scale"] = inc["diff_scale"]
+        return cls(**kwargs)
+
 
 # values the port runs; anything else raises until its slice lands
 _SUPPORTED = {
     "vis_encoder_type": "default", "dist_decoder_type": "mixture_logistics",
     "agg_net_type": "default", "init_net_type": "depth",
-    "init_diff_scale": 1, "fine_depth_use_all": False,
     "use_dr_prediction": False, "use_self_hit_prob": False,
     "use_depth_loss": False, "use_bf16": False, "gather_quant": "none",
 }
@@ -177,15 +214,21 @@ class NeurayRenderer(nn.Module):
         return prj
 
     def _network_rendering(self, prj: Tensors, que_dir: torch.Tensor,
-                           is_fine: bool):
+                           is_fine: bool, pos: torch.Tensor | None = None):
         agg = self.fine_agg_net if is_fine else self.agg_net
-        density, colors = agg(prj, que_dir)
+        density, colors = agg(prj, que_dir, pos=pos)
         alpha = 1.0 - torch.exp(-F.relu(density))
         hit_prob = alpha_values2hit_prob(alpha)
-        return hit_prob, composite_colors(hit_prob, colors)
+        return hit_prob, colors, composite_colors(hit_prob, colors)
 
     def _render_by_depth(self, que_depth: torch.Tensor, que: Tensors,
-                         ref: Tensors, is_fine: bool) -> Tensors:
+                         ref: Tensors, is_fine: bool,
+                         pos: torch.Tensor | None = None) -> Tensors:
+        """One pass at the given depths [qn, rn, dn]; ``pos`` [qn, rn, dn]
+        gives the focused render's attention positions. ``colors_nr``,
+        the per-sample radiance [qn, rn, dn, 3], is in the outputs because
+        the agg net computes it anyway; the chunk loops keep it only when
+        asked (``estimate_window_clip`` reads it)."""
         c = self.cfg
         que_dists = S.depth2inv_dists(que_depth, que["depth_range"])
         que_pts, que_dir = G.depth2points(
@@ -193,10 +236,10 @@ class NeurayRenderer(nn.Module):
         prj = self._project_and_gather(ref, que_pts)
         prj = self._predict_proj_ray_prob(
             prj, ref["depth_range"], que_dists, is_fine)
-        hit_prob_nr, pixel_colors_nr = self._network_rendering(
-            prj, que_dir, is_fine)
+        hit_prob_nr, colors_nr, pixel_colors_nr = self._network_rendering(
+            prj, que_dir, is_fine, pos)
         outputs = {"pixel_colors_nr": pixel_colors_nr,
-                   "hit_prob_nr": hit_prob_nr}
+                   "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
         if c.use_ray_mask:
             rm = prj["mask"].sum(dim=0) > c.ray_mask_view_num   # qn,rn,dn,1
             outputs["ray_mask"] = (rm.sum(dim=2) > c.ray_mask_point_num)[..., 0]
@@ -204,35 +247,171 @@ class NeurayRenderer(nn.Module):
             outputs["render_depth"] = (hit_prob_nr * que_depth).sum(dim=-1)
         return outputs
 
+    def _fine_depth(self, que_depth: torch.Tensor, hit_prob: torch.Tensor,
+                    depth_range: torch.Tensor, fdn: int) -> torch.Tensor:
+        """fdn depths resampled from the coarse hit_prob (eval: monotone,
+        no sort), merged with the coarse ones under fine_depth_use_all."""
+        fine_depth = S.sample_fine_depth(que_depth, hit_prob, depth_range, fdn)
+        if self.cfg.fine_depth_use_all:
+            fine_depth = torch.sort(
+                torch.cat([que_depth, fine_depth], dim=-1), dim=-1).values
+        return fine_depth
+
+    @staticmethod
+    def _add_fine(outputs: Tensors, fine_out: Tensors) -> Tensors:
+        for k, v in fine_out.items():
+            outputs[k + "_fine"] = v
+        return outputs
+
     def render_chunk(self, ref: Tensors, que: Tensors) -> Tensors:
         """Coarse + (optionally) fine render of one ray chunk (eval:
-        deterministic depths, fixed-u fine resampling, already
-        monotone, so no sort)."""
+        deterministic depths and fixed-u fine resampling)."""
         c = self.cfg
         qn, rn, _ = que["coords"].shape
         que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
                                       c.depth_sample_num)
         outputs = self._render_by_depth(que_depth, que, ref, False)
         if c.use_hierarchical_sampling:
-            fine_depth = S.sample_fine_depth(
+            fine_depth = self._fine_depth(
                 que_depth, outputs["hit_prob_nr"], que["depth_range"],
                 c.fine_depth_sample_num)
-            fine_out = self._render_by_depth(fine_depth, que, ref, True)
-            for k, v in fine_out.items():
-                outputs[k + "_fine"] = v
+            self._add_fine(outputs, self._render_by_depth(
+                fine_depth, que, ref, True))
+        return outputs
+
+    def render_chunk_fine(self, ref: Tensors, que: Tensors,
+                          hit_prob_nr: torch.Tensor) -> Tensors:
+        """The fine pass alone, from a known coarse hit_prob [qn, rn, dn]:
+        the fine half of ``render_chunk`` (the coarse depths are
+        recomputed). Outputs carry the ``_fine`` suffix."""
+        c = self.cfg
+        qn, rn, _ = que["coords"].shape
+        que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
+                                      c.depth_sample_num)
+        fine_depth = self._fine_depth(que_depth, hit_prob_nr,
+                                      que["depth_range"],
+                                      c.fine_depth_sample_num)
+        return self._add_fine({}, self._render_by_depth(
+            fine_depth, que, ref, True))
+
+    def _probe_hit_prob(self, ref: Tensors, que: Tensors):
+        """The coarse network pass at ``probe_sample_num`` samples, its
+        attention positions strided to those of the full coarse grid
+        (probe sample j sits where full coarse sample j*stride does).
+        Returns (que_depth, hit_prob), each [qn, rn, probe_sample_num].
+
+        The score must come from the agg net: a single view's decoded
+        hit mass sums to ~1 along any ray, so only the cross-view
+        aggregate separates empty rays from occupied ones."""
+        c = self.cfg
+        qn, rn, _ = que["coords"].shape
+        que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
+                                      c.probe_sample_num)
+        que_dists = S.depth2inv_dists(que_depth, que["depth_range"])
+        que_pts, que_dir = G.depth2points(
+            que["coords"], que["poses"], que["Ks"], que_depth)
+        prj = self._project_and_gather(ref, que_pts)
+        prj = self._predict_proj_ray_prob(
+            prj, ref["depth_range"], que_dists, False)
+        stride = max(1, c.depth_sample_num // c.probe_sample_num)
+        density, _ = self.agg_net(prj, que_dir, pos_stride=stride)
+        return que_depth, alpha_values2hit_prob(
+            1.0 - torch.exp(-F.relu(density)))
+
+    def probe_chunk(self, ref: Tensors, que: Tensors) -> torch.Tensor:
+        """Per-ray emptiness score [qn, rn]: the probe's aggregated hit
+        probability summed over its samples."""
+        return self._probe_hit_prob(ref, que)[1].sum(dim=-1)
+
+    def probe_chunk_focus(self, ref: Tensors, que: Tensors):
+        """The probe's score and each ray's depth window: the probe
+        samples where the cumulative hit fraction first reaches q and
+        1 - q (q = focus_quantile), widened by ``focus_margin`` samples
+        on each side. Rays with score <= 1e-3 keep the full range, so
+        focused sampling falls back to strided full-range sampling.
+
+        Returns (score, near, far), each [qn, rn].
+        """
+        c = self.cfg
+        que_depth, hit_prob = self._probe_hit_prob(ref, que)
+        score = hit_prob.sum(dim=-1)
+        frac = torch.cumsum(hit_prob, dim=-1) / (score[..., None] + 1e-12)
+        q, pn = c.focus_quantile, c.probe_sample_num
+        # argmax returns the first maximum: the first sample >= q (0 if none)
+        lo = torch.argmax((frac >= q).to(torch.uint8), dim=-1)
+        hi = torch.argmax((frac >= 1.0 - q).to(torch.uint8), dim=-1)
+        lo = (lo - c.focus_margin).clamp(0, pn - 1)
+        hi = (hi + c.focus_margin).clamp(0, pn - 1)
+        near = torch.gather(que_depth, -1, lo[..., None])[..., 0]
+        far = torch.gather(que_depth, -1, hi[..., None])[..., 0]
+        dr = que["depth_range"]
+        confident = score > 1e-3
+        near = torch.where(confident, near, dr[:, 0:1].expand_as(near))
+        far = torch.where(confident & (far > near), far,
+                          dr[:, 1:2].expand_as(far))
+        return score, near, far
+
+    def focus_depths(self, que: Tensors, near: torch.Tensor,
+                     far: torch.Tensor):
+        """The focused coarse pass's depths [qn, rn, focus_sample_num],
+        uniform in inverse depth across each ray's [near, far], and their
+        fractional positions in the full coarse grid: the attention sees
+        where each sample sits geometrically, the position distribution
+        it was trained on."""
+        c = self.cfg
+        que_depth, _ = S.sample_depth_ranged(near, far, c.focus_sample_num)
+        dr = que["depth_range"]
+        inv_lo = (-1.0 / dr[:, 0])[:, None, None]
+        inv_hi = (-1.0 / dr[:, 1])[:, None, None]
+        t = (-1.0 / que_depth - inv_lo) / (inv_hi - inv_lo)
+        return que_depth, t * (c.depth_sample_num - 1)
+
+    def focus_fine_depths(self, que: Tensors, que_depth: torch.Tensor,
+                          hit_prob: torch.Tensor):
+        """The focused fine pass's depths, resampled from the focused
+        coarse hit_prob, and their rank-scaled positions: spread evenly
+        over the full fine grid's (fine positions are ranks in training,
+        the surface sits mid-table wherever its depth is)."""
+        c = self.cfg
+        fine_depth = self._fine_depth(que_depth, hit_prob,
+                                      que["depth_range"],
+                                      c.focus_fine_sample_num)
+        qn, rn, nf = fine_depth.shape
+        nf_full = c.fine_depth_sample_num + (
+            c.depth_sample_num if c.fine_depth_use_all else 0)
+        pos = torch.linspace(0.0, float(nf_full - 1), nf,
+                             device=fine_depth.device)
+        return fine_depth, pos.expand(qn, rn, nf)
+
+    def render_chunk_focus(self, ref: Tensors, que: Tensors,
+                           near: torch.Tensor, far: torch.Tensor) -> Tensors:
+        """Coarse + fine render of one chunk inside per-ray depth windows
+        near, far [qn, rn]: ``focus_sample_num`` coarse and
+        ``focus_fine_sample_num`` fine samples (``focus_depths``,
+        ``focus_fine_depths``)."""
+        que_depth, pos_c = self.focus_depths(que, near, far)
+        outputs = self._render_by_depth(que_depth, que, ref, False, pos_c)
+        if self.cfg.use_hierarchical_sampling:
+            fine_depth, pos_f = self.focus_fine_depths(
+                que, que_depth, outputs["hit_prob_nr"])
+            self._add_fine(outputs, self._render_by_depth(
+                fine_depth, que, ref, True, pos_f))
         return outputs
 
 
 def chunk_coords(coords: torch.Tensor, chunk: int):
-    """Pad [qn, rn, 2] coords to a multiple of ``chunk`` by repeating the
-    last ray and split into [n_chunks, qn, chunk, 2]. Returns (chunks,
+    """Pad per-ray [qn, rn, ...] (the coords [qn, rn, 2], or any tensor
+    chunked alongside them) to a multiple of ``chunk`` by repeating the
+    last ray and split into [n_chunks, qn, chunk, ...]. Returns (chunks,
     valid_rn)."""
-    qn, rn, _ = coords.shape
+    qn, rn = coords.shape[:2]
     n_chunks = -(-rn // chunk)
     pad = n_chunks * chunk - rn
     if pad:
-        coords = torch.cat([coords, coords[:, -1:].expand(qn, pad, 2)], 1)
-    return coords.reshape(qn, n_chunks, chunk, 2).transpose(0, 1), rn
+        coords = torch.cat(
+            [coords, coords[:, -1:].expand(qn, pad, *coords.shape[2:])], 1)
+    return (coords.reshape(qn, n_chunks, chunk, *coords.shape[2:])
+            .transpose(0, 1), rn)
 
 
 DEFAULT_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine",
@@ -251,26 +430,456 @@ def encode_ref(renderer: NeurayRenderer, ref: Tensors) -> Tensors:
     return renderer.build_gather_cache(ref_c)
 
 
+# ---------------- chunk loops ----------------
+
 @torch.inference_mode()
+def _chunk_loop(step: Callable[..., Tensors], que: Tensors, chunk: int,
+                rows: Tuple[torch.Tensor, ...] = ()) -> Tensors:
+    """Run ``step(que_chunk, *row_chunks) -> {key: [qn, chunk, ...]}`` over
+    ``chunk``-ray chunks of que's rays; ``rows`` are per-ray tensors
+    [qn, rn, ...] chunked alongside the coords. The last chunk is padded
+    with copies of the last ray, whose outputs are cut off. Returns each
+    key concatenated over the chunks, [qn, rn, ...]."""
+    rn = que["coords"].shape[1]
+    parts: Dict[str, list] = {}
+    for coords, *row in zip(*(chunk_coords(x, chunk)[0]
+                              for x in (que["coords"], *rows))):
+        for k, v in step(dict(que, coords=coords), *row).items():
+            parts.setdefault(k, []).append(v)
+    return {k: torch.cat(v, dim=1)[:, :rn] for k, v in parts.items()}
+
+
+def _keep(out: Tensors, keep_keys: Iterable[str]) -> Tensors:
+    return {k: v for k, v in out.items() if k in keep_keys}
+
+
 def render_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
                 keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
     """Chunked ray loop over an encoded ref (from ``encode_ref``):
     renders ``ray_batch_num`` rays at a time and returns the kept
     outputs, each [qn, rn, ...]."""
-    chunks, rn = chunk_coords(que["coords"], renderer.cfg.ray_batch_num)
     keep = set(keep_keys)
-    parts: Dict[str, list] = {}
-    for coords_chunk in chunks:
-        que_c = dict(que)
-        que_c["coords"] = coords_chunk
-        out = renderer.render_chunk(ref_c, que_c)
-        for k, v in out.items():
-            if k in keep:
-                parts.setdefault(k, []).append(v)
-    return {k: torch.cat(v, dim=1)[:, :rn] for k, v in parts.items()}
+    return _chunk_loop(lambda q: _keep(renderer.render_chunk(ref_c, q), keep),
+                       que, renderer.cfg.ray_batch_num)
 
 
 def render_full(renderer: NeurayRenderer, ref: Tensors, que: Tensors,
                 keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
     """Scene encode + the chunked ray loop."""
     return render_rays(renderer, encode_ref(renderer, ref), que, keep_keys)
+
+
+def render_coarse_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
+                       keep_keys=("pixel_colors_nr", "hit_prob_nr")
+                       ) -> Tensors:
+    """The coarse pass alone over que's rays (the exact gate of the
+    two-phase render and of the audits)."""
+    c = renderer.cfg
+
+    def step(q):
+        qn, rn, _ = q["coords"].shape
+        depth, _ = S.sample_depth(q["depth_range"], qn, rn,
+                                  c.depth_sample_num)
+        return _keep(renderer._render_by_depth(depth, q, ref_c, False),
+                     keep_keys)
+
+    return _chunk_loop(step, que, c.ray_batch_num)
+
+
+def render_fine_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
+                     hit_prob: torch.Tensor,
+                     keep_keys=("pixel_colors_nr_fine",)) -> Tensors:
+    """The fine pass alone over que's rays, from their coarse hit_prob
+    [qn, rn, dn]."""
+    return _chunk_loop(
+        lambda q, hp: _keep(renderer.render_chunk_fine(ref_c, q, hp),
+                            keep_keys),
+        que, renderer.cfg.ray_batch_num, (hit_prob,))
+
+
+def probe_rays(renderer: NeurayRenderer, ref_c: Tensors,
+               que: Tensors) -> torch.Tensor:
+    """The probe's per-ray score [qn, rn] over que's rays."""
+    return _chunk_loop(lambda q: {"score": renderer.probe_chunk(ref_c, q)},
+                       que, renderer.cfg.ray_batch_num)["score"]
+
+
+def focus_probe_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors):
+    """The focus probe over que's rays: (score, near, far), each [qn, rn]."""
+    out = _chunk_loop(
+        lambda q: dict(zip(("score", "near", "far"),
+                           renderer.probe_chunk_focus(ref_c, q))),
+        que, renderer.cfg.ray_batch_num)
+    return out["score"], out["near"], out["far"]
+
+
+def render_focus_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
+                      near: torch.Tensor, far: torch.Tensor,
+                      keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
+    """The focused coarse + fine render over que's rays inside their
+    windows near, far [qn, rn]."""
+    keep = set(keep_keys)
+    return _chunk_loop(
+        lambda q, n, f: _keep(renderer.render_chunk_focus(ref_c, q, n, f),
+                              keep),
+        que, renderer.cfg.ray_batch_num, (near, far))
+
+
+# ---------------- host helpers ----------------
+
+def _host(x) -> np.ndarray:
+    """A tensor on any device, or an array, as a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _take_rays(que: Tensors, idx: np.ndarray) -> Tensors:
+    """que restricted to the rays idx [k] (numpy indices)."""
+    coords = que["coords"]
+    return dict(que, coords=coords[:, torch.from_numpy(idx).to(coords.device)])
+
+
+def _with_probe_sample_num(renderer: NeurayRenderer,
+                           psn: int) -> NeurayRenderer:
+    """The renderer with ``probe_sample_num`` = psn: a shallow copy that
+    shares every submodule and parameter (no weights copied or loaded)
+    under the replaced config."""
+    if psn == renderer.cfg.probe_sample_num:
+        return renderer
+    r = copy.copy(renderer)
+    r.cfg = dataclasses.replace(renderer.cfg, probe_sample_num=psn)
+    return r
+
+
+def _check_frame(renderer: NeurayRenderer, que: Tensors) -> None:
+    if not renderer.cfg.use_hierarchical_sampling:
+        raise ValueError("the frame drivers need use_hierarchical_sampling")
+    if que["coords"].shape[0] != 1:
+        raise ValueError("the frame drivers take one query view")
+
+
+def _dilate_keep_mask(keep_mask: np.ndarray, image_hw, dilate: int):
+    """Iterated 8-neighbour (3x3 max) dilation of a row-major full-image
+    keep mask. keep_mask [rn] bool -> [rn] bool."""
+    h, w = image_hw
+    m = keep_mask.reshape(h, w)
+    for _ in range(dilate):
+        g = m.copy()
+        g[1:] |= m[:-1]
+        g[:-1] |= m[1:]
+        g[:, 1:] |= m[:, :-1]
+        g[:, :-1] |= m[:, 1:]
+        g[1:, 1:] |= m[:-1, :-1]
+        g[1:, :-1] |= m[:-1, 1:]
+        g[:-1, 1:] |= m[1:, :-1]
+        g[:-1, :-1] |= m[1:, 1:]
+        m = g
+    return m.reshape(-1)
+
+
+def _strided_focus_probe(renderer: NeurayRenderer, ref_c: Tensors,
+                         que: Tensors, threshold: float, image_hw,
+                         stride: int):
+    """Run the focus probe on every stride-th pixel in x and y and give
+    the full-resolution rays conservative windows: 3x3 min(near) /
+    max(far) pooling and a 1-pixel keep dilation at probe resolution,
+    then nearest upsampling. Returns (keep_mask [rn] bool, near [1, rn],
+    far [1, rn]) as numpy arrays."""
+    h, w = image_hw
+    ys, xs = np.arange(0, h, stride), np.arange(0, w, stride)
+    hs, ws = ys.size, xs.size
+    sub_idx = (ys[:, None] * w + xs[None, :]).reshape(-1)
+    score, near, far = (
+        _host(x).astype(np.float32)[0].reshape(hs, ws)
+        for x in focus_probe_rays(renderer, ref_c, _take_rays(que, sub_idx)))
+
+    def pool3(a, op):
+        p = np.pad(a, 1, mode="edge")
+        return op(np.stack([p[i:i + hs, j:j + ws]
+                            for i in range(3) for j in range(3)]), axis=0)
+
+    keep_s = _dilate_keep_mask((score > threshold).reshape(-1), (hs, ws), 1)
+    yi = np.minimum(np.arange(h) // stride, hs - 1)[:, None]
+    xi = np.minimum(np.arange(w) // stride, ws - 1)[None, :]
+    return (keep_s.reshape(hs, ws)[yi, xi].reshape(-1),
+            pool3(near, np.min)[yi, xi].reshape(1, -1),
+            pool3(far, np.max)[yi, xi].reshape(1, -1))
+
+
+def _merge_kept_outputs(keep_base, kept_out, keep, keep_mask, qn, rn):
+    """Scatter kept-ray outputs into full-frame numpy arrays, zeros on
+    skipped rays. With nothing kept the trailing shape of each key comes
+    from a name map (render_depth per ray, the rest 3-channel)."""
+    out = {"kept_rays": int(keep.size), "keep_mask": keep_mask}
+    tails = {"render_depth": ()}
+    for k in keep_base:
+        for suffix in ("", "_fine"):
+            if kept_out is not None:
+                vals = _host(kept_out[k + suffix]).astype(np.float32)
+                full = np.zeros((qn, rn) + vals.shape[2:], np.float32)
+                full[0, keep] = vals[0]
+            else:
+                full = np.zeros((qn, rn) + tails.get(k, (3,)), np.float32)
+            out[k + suffix] = full
+    return out
+
+
+# ---------------- frame drivers ----------------
+
+def render_frame_probe_focus(renderer: NeurayRenderer, ref_c: Tensors,
+                             que: Tensors, threshold: float = 0.005,
+                             keep_base=("pixel_colors_nr",), image_hw=None,
+                             dilate: int = 0, probe_out=None,
+                             probe_stride: int = 1):
+    """Three-phase render with focused sampling: the focus probe scores
+    every ray and narrows its depth window; the rays scoring above
+    ``threshold`` render coarse + fine at focus_sample_num /
+    focus_fine_sample_num samples inside their windows; skipped rays are
+    0. Kept rays are sampled denser across their surface interval at
+    fewer samples, so they are not the full render's values.
+
+    image_hw=(h, w) (row-major full-image rays) with dilate=d grows the
+    keep mask by d pixels. probe_stride > 1 (needs image_hw) probes every
+    stride-th pixel in x and y, stride^2 fewer probe rays, with
+    conservative windows (``_strided_focus_probe``). probe_out: a probe
+    result to reuse (``render_frame_probe_auto``): (score, near, far)
+    tensors from ``focus_probe_rays`` at probe_stride 1, the (keep_mask,
+    near, far) arrays of ``_strided_focus_probe`` above it.
+
+    Returns, per key k of keep_base, ``k`` and ``k + "_fine"`` [1, rn, ...]
+    numpy arrays, plus ``kept_rays`` and ``keep_mask``.
+    """
+    _check_frame(renderer, que)
+    keep_base = tuple(keep_base)
+    keep_keys = keep_base + tuple(k + "_fine" for k in keep_base)
+    qn, rn, _ = que["coords"].shape
+    if probe_stride > 1:
+        if image_hw is None:
+            raise ValueError("probe_stride > 1 needs image_hw")
+        keep_mask, near, far = (
+            probe_out if probe_out is not None
+            else _strided_focus_probe(renderer, ref_c, que, threshold,
+                                      image_hw, probe_stride))
+    else:
+        score, near, far = (probe_out if probe_out is not None
+                            else focus_probe_rays(renderer, ref_c, que))
+        keep_mask = _host(score)[0] > threshold
+    if dilate > 0 and image_hw is not None:
+        keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
+    keep = np.nonzero(keep_mask)[0]
+    kept_out = None
+    if keep.size:
+        que_k = _take_rays(que, keep)
+        idx = torch.from_numpy(keep).to(que["coords"].device)
+        near_k, far_k = (torch.as_tensor(x, device=idx.device)[:, idx]
+                         for x in (near, far))
+        kept_out = render_focus_rays(renderer, ref_c, que_k, near_k, far_k,
+                                     keep_keys)
+    return _merge_kept_outputs(keep_base, kept_out, keep, keep_mask, qn, rn)
+
+
+def render_frame_probe_skip(renderer: NeurayRenderer, ref_c: Tensors,
+                            que: Tensors, threshold: float = 0.005,
+                            keep_base=("pixel_colors_nr",), image_hw=None,
+                            dilate: int = 0, probe_out=None):
+    """Three-phase render: the probe scores every ray, the exact coarse +
+    fine render runs only on the rays scoring above ``threshold``, and
+    skipped rays are 0 (compositing has no background term). Kept rays
+    get the full render's values. image_hw and dilate grow the keep mask
+    as in ``render_frame_probe_focus``; probe_out: a ``probe_rays``
+    score to reuse. Returns what ``render_frame_probe_focus`` returns."""
+    _check_frame(renderer, que)
+    keep_base = tuple(keep_base)
+    keep_keys = keep_base + tuple(k + "_fine" for k in keep_base)
+    qn, rn, _ = que["coords"].shape
+    score = _host(probe_out if probe_out is not None
+                  else probe_rays(renderer, ref_c, que))
+    keep_mask = score[0] > threshold
+    if dilate > 0 and image_hw is not None:
+        keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
+    keep = np.nonzero(keep_mask)[0]
+    kept_out = (render_rays(renderer, ref_c, _take_rays(que, keep), keep_keys)
+                if keep.size else None)
+    return _merge_kept_outputs(keep_base, kept_out, keep, keep_mask, qn, rn)
+
+
+def render_frame_skip_empty(renderer: NeurayRenderer, ref_c: Tensors,
+                            que: Tensors, threshold: float = 0.02,
+                            keep_base=("pixel_colors_nr",)):
+    """Two-phase render: the exact coarse pass on every ray, then the fine
+    pass only on rays whose coarse hit mass exceeds ``threshold``; the
+    other rays' fine output is their coarse output. Kept rays get the
+    full render's values.
+
+    Returns, per key k of keep_base, ``k`` (coarse) and ``k + "_fine"``
+    [1, rn, ...] numpy arrays, plus ``kept_rays`` and ``keep_mask``.
+    """
+    _check_frame(renderer, que)
+    keep_base = tuple(keep_base)
+    coarse = render_coarse_rays(renderer, ref_c, que,
+                                keep_base + ("hit_prob_nr",))
+    hit_prob = coarse["hit_prob_nr"]
+    keep_mask = _host(hit_prob.sum(dim=-1))[0] > threshold
+    keep = np.nonzero(keep_mask)[0]
+    fine = None
+    if keep.size:
+        idx = torch.from_numpy(keep).to(hit_prob.device)
+        fine = render_fine_rays(renderer, ref_c, _take_rays(que, keep),
+                                hit_prob[:, idx],
+                                tuple(k + "_fine" for k in keep_base))
+    out = {"kept_rays": int(keep.size), "keep_mask": keep_mask}
+    for k in keep_base:
+        base = _host(coarse[k]).astype(np.float32)
+        merged = base.copy()
+        if fine is not None:
+            merged[0, keep] = _host(fine[k + "_fine"])[0]
+        out[k] = base
+        out[k + "_fine"] = merged
+    return out
+
+
+# ---------------- audits ----------------
+
+def _audit_pick(idx: np.ndarray, sample_rays: int, seed: int) -> np.ndarray:
+    return (idx if idx.size <= sample_rays else np.random.RandomState(
+        seed).choice(idx, sample_rays, replace=False))
+
+
+def estimate_false_skip(renderer: NeurayRenderer, ref_c: Tensors,
+                        que: Tensors, skip_idx: np.ndarray,
+                        threshold: float, sample_rays: int = 2048,
+                        seed: int = 0) -> float:
+    """The share of a random sample of the probe's skipped rays (at most
+    ``sample_rays``) that the exact gate, the full coarse pass's hit mass
+    > threshold, would have kept."""
+    if skip_idx.size == 0:
+        return 0.0
+    pick = _audit_pick(skip_idx, sample_rays, seed)
+    hp = _host(render_coarse_rays(renderer, ref_c, _take_rays(que, pick),
+                                  ("hit_prob_nr",))["hit_prob_nr"])
+    return float((hp[0].sum(-1) > threshold).mean())
+
+
+def estimate_window_clip(renderer: NeurayRenderer, ref_c: Tensors,
+                         que: Tensors, keep_idx: np.ndarray, near, far,
+                         threshold: float, sample_rays: int = 1024,
+                         seed: int = 0, ref_psnr: float = 35.0):
+    """Audit the focus windows near, far [1, rn] against the exact coarse
+    pass on a random sample of the kept rays (at most ``sample_rays``).
+
+    Returns ``clip_mass``, the mean share of a ray's exact hit mass that
+    lies outside its window (rays with mass <= threshold left out), and
+    ``clip_db``, the predicted PSNR cost of the windows: per audited ray
+    the colour error of clipping, exact composite minus the composite of
+    the samples inside the window, scaled by the kept fraction of the
+    frame, under mse_total = mse_ref + mse_clip with
+    mse_ref = 10^(-ref_psnr / 10):
+    clip_db = 10 log10(1 + mse_clip * kept_frac / mse_ref).
+    """
+    if keep_idx.size == 0:
+        return {"clip_mass": 0.0, "clip_db": 0.0}
+    pick = _audit_pick(keep_idx, sample_rays, seed)
+    out = render_coarse_rays(renderer, ref_c, _take_rays(que, pick),
+                             ("hit_prob_nr", "colors_nr"))
+    hp = _host(out["hit_prob_nr"])[0]                           # n,dn
+    cols = _host(out["colors_nr"]).astype(np.float32)[0]        # n,dn,3
+    # the exact coarse depths, recomputed
+    depth = _host(S.sample_depth(que["depth_range"], 1, pick.size,
+                                 renderer.cfg.depth_sample_num)[0])[0]
+    inside = ((depth >= _host(near)[0, pick][:, None])
+              & (depth <= _host(far)[0, pick][:, None]))
+    mass = hp.sum(-1)
+    mass_in = (hp * inside).sum(-1)
+    valid = mass > threshold
+    clip_mass = 0.0
+    if valid.any():
+        clip_mass = float((1.0 - mass_in[valid]
+                           / np.maximum(mass[valid], 1e-8)).mean())
+    e = np.einsum("nd,ndc->nc", hp, cols)
+    f = np.einsum("nd,ndc->nc", hp * inside, cols)
+    mse_clip = float(np.mean((e - f) ** 2))
+    kept_frac = keep_idx.size / que["coords"].shape[1]
+    mse_ref = 10.0 ** (-ref_psnr / 10.0)
+    clip_db = float(10.0 * np.log10(1.0 + mse_clip * kept_frac / mse_ref))
+    return {"clip_mass": clip_mass, "clip_db": clip_db}
+
+
+def render_frame_probe_auto(renderer: NeurayRenderer, ref_c: Tensors,
+                            que: Tensors, threshold: float = 0.005,
+                            keep_base=("pixel_colors_nr",), image_hw=None,
+                            dilate: int = 1, focus: bool = False,
+                            tol: float = 0.02,
+                            max_probe_sample_num: int = 32,
+                            validate_rays: int = 2048, seed: int = 0,
+                            probe_stride: int = 1,
+                            win_tol_db: float = 0.05,
+                            win_ref_psnr: float = 35.0):
+    """Self-validating probe render. Probe, then audit on random rays
+    against the exact coarse gate: the false-skip rate on skipped rays
+    (``estimate_false_skip``) and, with ``focus``, the windows' predicted
+    PSNR cost on kept rays (``estimate_window_clip``). If the rate is
+    <= tol and the cost <= win_tol_db dB, render with the probe
+    (``render_frame_probe_focus`` with focus, else
+    ``render_frame_probe_skip``); otherwise double probe_sample_num (the
+    same modules, ``_with_probe_sample_num``) and audit again; past
+    max_probe_sample_num fall back to ``render_frame_skip_empty``, whose
+    gate cannot miss. probe_stride > 1 takes effect with focus and
+    image_hw.
+
+    Returns the frame dict plus ``probe_sample_num`` (the accepted
+    value), ``false_skip_rate`` (the last audit), ``fallback``
+    ("two_phase" or None), ``audit_trail`` (one {probe_sample_num,
+    false_skip_rate, window_clip_db, kept_fraction} record per rung
+    tried) and, with focus, ``window_clip`` and ``window_clip_db`` of
+    the last window audit.
+    """
+    psn = renderer.cfg.probe_sample_num
+    use_stride = focus and probe_stride > 1 and image_hw is not None
+    info = {"fallback": None, "audit_trail": []}
+    while True:
+        r = _with_probe_sample_num(renderer, psn)
+        if use_stride:
+            probe_out = _strided_focus_probe(r, ref_c, que, threshold,
+                                             image_hw, probe_stride)
+            keep_mask = probe_out[0]
+        else:
+            probe_out = (focus_probe_rays(r, ref_c, que) if focus
+                         else probe_rays(r, ref_c, que))
+            score = probe_out[0] if focus else probe_out
+            keep_mask = _host(score)[0] > threshold
+        if dilate > 0 and image_hw is not None:
+            keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
+        fs = estimate_false_skip(r, ref_c, que, np.nonzero(~keep_mask)[0],
+                                 threshold, validate_rays, seed)
+        info["false_skip_rate"] = fs
+        info["probe_sample_num"] = psn
+        wc_db = 0.0
+        if focus and fs <= tol:
+            wc = estimate_window_clip(
+                r, ref_c, que, np.nonzero(keep_mask)[0], probe_out[1],
+                probe_out[2], threshold, seed=seed, ref_psnr=win_ref_psnr)
+            info["window_clip"] = wc["clip_mass"]
+            info["window_clip_db"] = wc_db = wc["clip_db"]
+        info["audit_trail"].append({
+            "probe_sample_num": psn, "false_skip_rate": fs,
+            "window_clip_db": wc_db if focus and fs <= tol else None,
+            "kept_fraction": float(keep_mask.mean())})
+        if fs <= tol and wc_db <= win_tol_db:
+            if focus:
+                out = render_frame_probe_focus(
+                    r, ref_c, que, threshold=threshold, keep_base=keep_base,
+                    image_hw=image_hw, dilate=dilate, probe_out=probe_out,
+                    probe_stride=probe_stride if use_stride else 1)
+            else:
+                out = render_frame_probe_skip(
+                    r, ref_c, que, threshold=threshold, keep_base=keep_base,
+                    image_hw=image_hw, dilate=dilate, probe_out=probe_out)
+            out.update(info)
+            return out
+        if psn * 2 > max_probe_sample_num:
+            out = render_frame_skip_empty(renderer, ref_c, que,
+                                          threshold=threshold,
+                                          keep_base=keep_base)
+            info["fallback"] = "two_phase"
+            out.update(info)
+            return out
+        psn *= 2

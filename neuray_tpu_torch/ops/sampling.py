@@ -36,17 +36,22 @@ def sample_depth(depth_range: torch.Tensor, qn: int, rn: int, dn: int):
 
     depth_range [qn, 2] -> (que_depth [qn, rn, dn], que_dists [qn, rn, dn]).
     """
-    near, far = depth_range[:, 0], depth_range[:, 1]              # qn
-    interval = (1.0 / far - 1.0 / near) / (dn - 1)                 # qn
-    val = torch.arange(1, dn - 1, dtype=torch.float32,
-                       device=depth_range.device)
-    ticks = interval[:, None, None] * val.expand(qn, rn, dn - 2)
-    diff = (1.0 / far - 1.0 / near)
-    zeros = torch.zeros((qn, rn, 1), dtype=torch.float32,
-                        device=depth_range.device)
-    last = diff[:, None, None].expand(qn, rn, 1)
-    ticks = torch.cat([zeros, ticks, last], dim=-1)
-    que_depth = 1.0 / (1.0 / near[:, None, None] + ticks)
+    return sample_depth_ranged(depth_range[:, 0:1].expand(qn, rn),
+                               depth_range[:, 1:2].expand(qn, rn), dn)
+
+
+def sample_depth_ranged(near: torch.Tensor, far: torch.Tensor, dn: int):
+    """``sample_depth`` with a per-ray window: dn depths uniform in
+    inverse depth across [near, far], endpoints pinned.
+
+    near, far [qn, rn] -> (que_depth [qn, rn, dn], que_dists [qn, rn, dn])
+    """
+    interval = (1.0 / far - 1.0 / near) / (dn - 1)                 # qn,rn
+    val = torch.arange(1, dn - 1, dtype=torch.float32, device=near.device)
+    ticks = interval[..., None] * val
+    diff = (1.0 / far - 1.0 / near)[..., None]                     # qn,rn,1
+    ticks = torch.cat([torch.zeros_like(diff), ticks, diff], dim=-1)
+    que_depth = 1.0 / (1.0 / near[..., None] + ticks)
     return que_depth, depth2dists(que_depth)
 
 

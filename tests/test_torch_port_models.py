@@ -241,8 +241,9 @@ def test_depth_init_net(W, scene):
         {"params": tree}, scene)
     assert ours.shape == (3, 8, 8, 32)
     close(ours, theirs)
-    with pytest.raises(NotImplementedError):
-        N.DepthInitNet(diff_scale=2)
+    # diff_scale changes only the eval grid, not the parameters
+    assert (N.DepthInitNet(diff_scale=2).state_dict().keys()
+            == N.DepthInitNet().state_dict().keys())
 
 
 # ---------------- vis encoder / dist decoder ----------------

@@ -155,9 +155,16 @@ def test_cpu_render_never_launches_the_kernel(inputs):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_bf16", True), ("gather_quant", "u8"), ("init_diff_scale", 2),
+    ("use_bf16", True), ("gather_quant", "u8"),
     ("use_dr_prediction", True), ("use_self_hit_prob", True),
-    ("init_net_type", "cost_volume"), ("fine_depth_use_all", True)])
+    ("init_net_type", "cost_volume"), ("use_depth_loss", True)])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match=field):
         R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("init_diff_scale", 2), ("fine_depth_use_all", True)])
+def test_ported_config_builds(field, value):
+    renderer = R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
+    assert getattr(renderer.cfg, field) == value
