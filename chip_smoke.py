@@ -22,10 +22,28 @@ Phases, one line each, any failure raising (exit code != 0):
      warm-up frame, then a timed frame (encode + ``render_frame_probe_auto``)
      whose gather launches must equal what its chunk counts imply;
      GT-PSNR >= 24 dB; then 2048 kept rays through the image centre,
-     card against CPU inside the probe's windows, each pass to 1e-4.
-The line before the last is a JSON record of the kernel; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-before printing anything.
+     card against CPU inside the probe's windows, each pass to 1e-4;
+  7. ``bench.py``'s accelerator default on the same scene, weights and
+     query: bf16 compute and the u8 gather map, half-grid init diff,
+     ``render_frame_probe_focus`` with a 16-sample probe every 2nd pixel,
+     threshold 0.01, dilate 1, 12 + 24 focus samples. Warm-up frame, then
+     a timed frame (encode + render) whose gather launches must equal
+     what its chunk counts imply, by instantiation; GT-PSNR >= 24 dB.
+     Then the same profile with a bf16 map (no u8) and in f32, one frame
+     each: PSNR of each bf16 frame against the f32 frame >= 30 dB (a
+     broken route, not rounding) and the count of rays whose keep
+     decision differs. Then 2048 kept rays through the image centre, card
+     against CPU inside the probe's windows, each pass's colours within
+     ``BF16_PASS_BOUND`` = 0.05 on the same inputs: two bf16
+     implementations of a pass round differently, and the CPU test
+     ``tests/test_torch_port_bf16.py::test_passes_on_the_same_inputs``
+     measures the port against the JAX package at 0.012-0.039 per pass
+     and holds it to this bound.
+Phase 3 also holds the u8 instantiation (codes dequantized per channel
+into bf16) to its plain twin at the per-chunk shapes of phase 7.
+The line before the last is a JSON record of the kernel's instantiations;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
+it exits non-zero before printing anything.
 """
 import copy
 import json
@@ -53,6 +71,16 @@ FAST_PROFILE = dict(
 # the profile's render_frame_probe_auto arguments (skip_empty_threshold,
 # skip_auto_tol, probe_dilate, probe_stride)
 FAST_ARGS = dict(threshold=0.01, tol=0.02, dilate=1, probe_stride=2)
+# bench.py's accelerator default (BENCH_* unset) as RenderConfig fields,
+# and its render_frame_probe_focus arguments
+BENCH_PROFILE = dict(
+    use_hierarchical_sampling=True, depth_sample_num=DN,
+    fine_depth_sample_num=DN, ray_batch_num=CHUNK, probe_sample_num=16,
+    focus_sample_num=12, focus_fine_sample_num=24, init_diff_scale=2,
+    use_vis=False, fine_use_vis=False, use_bf16=True, gather_quant="u8")
+BENCH_ARGS = dict(threshold=0.01, dilate=1, probe_stride=2)
+BF16_PASS_BOUND = 0.05
+BF16_PSNR_FLOOR = 30.0
 
 
 def log(*args):
@@ -72,11 +100,21 @@ def time_ms(fn, *args, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def random_coords(g, dev, v, p, fh, fw):
+    """[v, p, 2] map pixels with a 5% margin outside the map on every
+    side: the border clamp."""
+    coords = torch.rand((v, p, 2), generator=g, device=dev)
+    coords = coords * torch.tensor([fw * 1.1, fh * 1.1], device=dev)
+    return (coords - torch.tensor([fw * 0.05, fh * 0.05],
+                                  device=dev)).contiguous()
+
+
 def check_kernel(GA, dev):
-    """Kernel vs plain version at the main path's shapes. Returns the
-    f32 max error over all shapes and the (kernel, plain) ms of the
-    per-chunk 64-channel feature gather."""
+    """Kernel vs plain version at the main path's shapes, for each
+    instantiation. Returns {instantiation: (max error over its shapes,
+    kernel ms, plain ms of its per-chunk 64-channel feature gather)}."""
     g = torch.Generator(device=dev).manual_seed(0)
+    stats = {}
     # (what, views, map h, map w, channels, points per view)
     shapes = [("feats 1/4 res, per chunk", RFN, H // 4, W // 4, 64,
                CHUNK * DN),
@@ -84,13 +122,8 @@ def check_kernel(GA, dev):
               ("diff [depth|rgb], per encode", RFN, H, W, 4, RFN * H * W),
               ("diff [depth|rgb], per half-grid encode", RFN, H // 2,
                W // 2, 4, RFN * (H // 2) * (W // 2))]
-    worst, feat_ms = 0.0, None
     for name, v, fh, fw, c, p in shapes:
-        coords = torch.rand((v, p, 2), generator=g, device=dev)
-        # 5% margin outside the map on every side: the border clamp
-        coords = coords * torch.tensor([fw * 1.1, fh * 1.1], device=dev)
-        coords = (coords - torch.tensor([fw * 0.05, fh * 0.05],
-                                        device=dev)).contiguous()
+        coords = random_coords(g, dev, v, p, fh, fw)
         base = torch.rand((v, fh, fw, c), generator=g, device=dev)
         # bf16: both sides lerp in f32 and round once; FMA contraction
         # may put the f32 value on the other side of a rounding boundary,
@@ -109,11 +142,37 @@ def check_kernel(GA, dev):
             log(f"kernel check: {name} [{v},{fh},{fw},{c}] x [{v},{p},2] "
                 f"{str(dtype)[6:]}: max_abs_err {err:.3g}, kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if dtype == torch.float32:
-                worst = max(worst, err)
-                if feat_ms is None:
-                    feat_ms = (ms, plain_ms)
-    return worst, feat_ms
+            key = "f32" if dtype == torch.float32 else "bf16"
+            worst, *times = stats.get(key, (0.0, ms, plain_ms))
+            stats[key] = (max(worst, err), *times)
+    # u8 codes, dequantized per channel: at phase 7's per-chunk shapes (the
+    # focused coarse pass, 12 samples). The kernel rounds its f32
+    # arithmetic op for op as the plain twin does; the bound is one bf16
+    # ulp of the output
+    p = CHUNK * BENCH_PROFILE["focus_sample_num"]
+    for name, v, fh, fw, c in (("u8 feats 1/4 res, per chunk", RFN, H // 4,
+                                W // 4, 64),
+                               ("u8 rgb full res, per chunk", RFN, H, W, 3)):
+        coords = random_coords(g, dev, v, p, fh, fw)
+        codes = torch.randint(0, 256, (v, fh, fw, c), generator=g,
+                              device=dev, dtype=torch.uint8)
+        scale = torch.rand(c, generator=g, device=dev) / 127.0
+        offset = scale * 128.0
+        args = (codes, coords, scale, offset)
+        out = GA.gather_bilinear_border_u8(*args)
+        ref = GA.gather_bilinear_border_u8_ref(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -8,
+                                   atol=1e-6)
+        ms = time_ms(GA.gather_bilinear_border_u8, *args)
+        plain_ms = time_ms(GA.gather_bilinear_border_u8_ref, *args)
+        log(f"kernel check: {name} [{v},{fh},{fw},{c}] x [{v},{p},2] u8: "
+            f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        worst, *times = stats.get("u8", (0.0, ms, plain_ms))
+        stats["u8"] = (max(worst, err), *times)
+    return stats
 
 
 def psnr(img, gt):
@@ -121,13 +180,14 @@ def psnr(img, gt):
     return -10.0 * np.log10(mse)
 
 
-def in_situ(R, renderer, ref_c, que, idx, windows=None):
+def in_situ(R, renderer, ref_c, que, idx, windows=None, bound=1e-4):
     """The kernel path in place against the plain path on the CPU, from
     the same encoded maps, on the rays idx (numpy): the exact passes, or
     with ``windows`` = (near, far) [1, rn] the focused passes inside
     them.
 
-    Each pass's colours are held to 1e-4 on the same inputs: the coarse
+    Each pass's colours are held to ``bound`` (f32: 1e-4; bf16:
+    ``BF16_PASS_BOUND``) on the same inputs: the coarse
     pass from the same depths, the fine pass from the same (the card's)
     fine depths. The coarse hit_prob_nr and the end-to-end fine colours
     are reported, not held: the fine
@@ -143,7 +203,8 @@ def in_situ(R, renderer, ref_c, que, idx, windows=None):
              "end-to-end pixel_colors_nr_fine": 0.0}
 
     def diff(key, a, b):
-        worst[key] = max(worst[key], (a.cpu() - b).abs().max().item())
+        worst[key] = max(worst[key],
+                         (a.cpu().float() - b.float()).abs().max().item())
 
     def cpu(x):
         return None if x is None else x.cpu()
@@ -187,7 +248,7 @@ def in_situ(R, renderer, ref_c, que, idx, windows=None):
         "max_abs_err: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
     held = {k: v for k, v in worst.items() if "pixel_colors" in k
             and not k.startswith("end")}
-    if not all(v <= 1e-4 for v in held.values()):
+    if not all(v <= bound for v in held.values()):
         raise RuntimeError(f"card and CPU passes differ: {held}")
 
 
@@ -216,7 +277,8 @@ def expected_fast_launches(out, n_rays, n_probe):
 
 
 def fast_profile(R, GA, renderer, ref, que, gt, full_img):
-    """Phase 6. Returns the gather launches of its timed frame."""
+    """Phase 6. Returns the gather launches of its timed frame, by
+    instantiation."""
     fast = R.NeurayRenderer(R.RenderConfig(**FAST_PROFILE))
     fast.load_state_dict(renderer.state_dict())
     fast = fast.to(ref["imgs"].device).eval()
@@ -238,9 +300,10 @@ def fast_profile(R, GA, renderer, ref, que, gt, full_img):
     frame()
     log(f"fast profile warm-up frame: {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
-    GA.LAUNCHES = 0
+    GA.reset_launches()
     ref_c, out, t0, t1, t2 = frame()
     launches = GA.LAUNCHES
+    by_dtype = dict(GA.LAUNCHES_BY_DTYPE)
     expected = expected_fast_launches(out, n_rays, n_probe)
     for k in ("pixel_colors_nr", "pixel_colors_nr_fine"):
         if out[k].shape != (1, n_rays, 3) or not np.isfinite(out[k]).all():
@@ -274,7 +337,107 @@ def fast_profile(R, GA, renderer, ref, que, gt, full_img):
     _, near, far = R._strided_focus_probe(
         probe, ref_c, que, FAST_ARGS["threshold"], (H, W), stride)
     in_situ(R, fast, ref_c, que, keep[start:start + N_CHECK], (near, far))
-    return launches
+    return by_dtype
+
+
+def expected_focus_launches(kept_rays, n_probe):
+    """Gather launches of ``render_frame_probe_focus``'s passes, implied by
+    its chunk counts: 2 (rgb, then the 64-ch map) per chunk of the probe
+    over n_probe rays and of each of the two focused passes over the kept
+    rays."""
+    def chunks(n):
+        return -(-n // CHUNK)
+
+    return 2 * (chunks(n_probe) + 2 * chunks(kept_rays))
+
+
+def bench_profile(R, GA, renderer, ref, que, gt):
+    """Phase 7. Returns the gather launches of its counted frames, by
+    instantiation."""
+    n_rays = que["coords"].shape[1]
+    stride = BENCH_ARGS["probe_stride"]
+    n_probe = -(-H // stride) * -(-W // stride)
+
+    def build(**over):
+        r = R.NeurayRenderer(R.RenderConfig(**{**BENCH_PROFILE, **over}))
+        r.load_state_dict(renderer.state_dict())
+        return r.to(ref["imgs"].device).eval()
+
+    def frame(r):
+        """Encode + render_frame_probe_focus, its launches counted and
+        checked against the chunk counts: the encode's half-grid diff
+        gather is f32, the passes gather from the route's maps."""
+        GA.reset_launches()
+        t0 = time.perf_counter()
+        ref_c = R.encode_ref(r, ref)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = R.render_frame_probe_focus(r, ref_c, que, image_hw=(H, W),
+                                         **BENCH_ARGS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = dict(GA.LAUNCHES_BY_DTYPE)
+        c = r.cfg
+        route = ("f32" if not c.use_bf16 else
+                 "u8" if c.gather_quant == "u8" else "bf16")
+        expected = {"f32": 1, "bf16": 0, "u8": 0}
+        expected[route] += expected_focus_launches(out["kept_rays"], n_probe)
+        for k in ("pixel_colors_nr", "pixel_colors_nr_fine"):
+            if out[k].shape != (1, n_rays, 3) or not np.isfinite(out[k]).all():
+                raise RuntimeError(f"bench profile ({route}) {k}: shape "
+                                   f"{out[k].shape} or not finite")
+        if launches != expected:
+            raise RuntimeError(f"bench profile ({route}): gather launches "
+                               f"{launches}, expected {expected}")
+        img = out["pixel_colors_nr_fine"][0].reshape(H, W, 3)
+        return {"ref_c": ref_c, "out": out, "img": img, "launches": launches,
+                "encode": t1 - t0, "render": t2 - t1}
+
+    bench = build()
+    t0 = time.perf_counter()
+    frame(bench)
+    log(f"bench profile warm-up frame: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    u8 = frame(bench)
+    bf16 = frame(build(gather_quant="none"))
+    f32 = frame(build(use_bf16=False, gather_quant="none"))
+    kept = u8["out"]["kept_rays"]
+    total = u8["encode"] + u8["render"]
+    log(f"bench profile frame (bf16 + u8): {n_rays} rays, encode "
+        f"{u8['encode']:.3f} s, probe + render {u8['render']:.3f} s = "
+        f"{n_rays / u8['render']:.1f} rays/s ({n_rays / total:.1f} rays/s "
+        f"with the encode), kept {kept / n_rays:.4f} of the rays, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"gather launches {u8['launches']}")
+    for name, f in (("bf16 map", bf16), ("f32", f32)):
+        log(f"bench profile frame ({name}): encode {f['encode']:.3f} s, probe "
+            f"+ render {f['render']:.3f} s = {n_rays / f['render']:.1f} "
+            f"rays/s, kept {f['out']['kept_rays'] / n_rays:.4f}, gather "
+            f"launches {f['launches']}")
+    gt_psnr = {k: psnr(f["img"], gt) for k, f in
+               (("bf16 + u8", u8), ("bf16", bf16), ("f32", f32))}
+    vs_f32 = {k: psnr(f["img"], f32["img"]) for k, f in
+              (("bf16 + u8", u8), ("bf16", bf16))}
+    flips = {k: int((f["out"]["keep_mask"] != f32["out"]["keep_mask"]).sum())
+             for k, f in (("bf16 + u8", u8), ("bf16", bf16))}
+    log("bench profile quality: GT-PSNR fine " + ", ".join(
+        f"{k} {v:.3f} dB" for k, v in gt_psnr.items()) + "; against the f32 "
+        "frame " + ", ".join(f"{k} {v:.3f} dB" for k, v in vs_f32.items())
+        + f"; rays whose keep decision differs from f32 {flips}")
+    if not gt_psnr["bf16 + u8"] >= PSNR_FLOOR:
+        raise RuntimeError(f"bench profile GT-PSNR {gt_psnr['bf16 + u8']:.3f}"
+                           f" dB < {PSNR_FLOOR}")
+    if not all(v >= BF16_PSNR_FLOOR for v in vs_f32.values()):
+        raise RuntimeError(f"bench profile against f32 {vs_f32} < "
+                           f"{BF16_PSNR_FLOOR} dB")
+
+    keep = np.nonzero(u8["out"]["keep_mask"])[0]
+    start = max(0, (keep.size - N_CHECK) // 2)
+    _, near, far = R._strided_focus_probe(
+        bench, u8["ref_c"], que, BENCH_ARGS["threshold"], (H, W), stride)
+    in_situ(R, bench, u8["ref_c"], que, keep[start:start + N_CHECK],
+            (near, far), BF16_PASS_BOUND)
+    return [f["launches"] for f in (u8, bf16, f32)]
 
 
 def main():
@@ -304,7 +467,7 @@ def main():
     log(f"build: gather_bilinear_border.cu in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernel_err, (kernel_ms, plain_ms) = check_kernel(GA, dev)
+    kernel_stats = check_kernel(GA, dev)
 
     # ---- full frame ----
     rng = np.random.RandomState(0)
@@ -331,7 +494,7 @@ def main():
     log(f"warm-up frame: {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    GA.LAUNCHES = 0
+    GA.reset_launches()
     t0 = time.perf_counter()
     ref_c = R.encode_ref(renderer, ref)
     torch.cuda.synchronize()
@@ -340,6 +503,7 @@ def main():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = GA.LAUNCHES
+    counted = [dict(GA.LAUNCHES_BY_DTYPE)]
     expected = 2 * 2 * n_chunks + 1
     if launches != expected:
         raise RuntimeError(f"gather kernel launched {launches} times in "
@@ -366,14 +530,16 @@ def main():
     in_situ(R, renderer, ref_c, que,
             np.arange(N_CHECK) + (n_rays - N_CHECK) // 2)
 
-    launches += fast_profile(R, GA, renderer, ref, que, gt, img)
+    counted.append(fast_profile(R, GA, renderer, ref, que, gt, img))
+    counted += bench_profile(R, GA, renderer, ref, que, gt)
 
     log(json.dumps({"kernels": [{
-        "name": "gather_bilinear_border", "route": "cuda",
+        "name": f"gather_bilinear_border_{k}", "route": "cuda",
         "source": "neuray_tpu_torch/csrc/gather_bilinear_border.cu",
         "replaces": "neuray_tpu/ops/pallas/gather.py:85",
-        "launches": launches, "max_abs_err": kernel_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "launches": sum(c[k] for c in counted),
+        "max_abs_err": kernel_stats[k][0], "ms": kernel_stats[k][1],
+        "plain_ms": kernel_stats[k][2]} for k in ("f32", "bf16", "u8")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

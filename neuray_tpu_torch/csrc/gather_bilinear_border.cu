@@ -37,6 +37,30 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// The clamp and anchor of element i = (view, point, channel): the
+// offset of its top-left tap in the map and the lerp weights tx, ty.
+struct Tap {
+  int64_t offset;
+  int ch;
+  float tx, ty;
+};
+
+__device__ __forceinline__ Tap locate(const float* __restrict__ coords,
+                                      int64_t i, int64_t p, int fh, int fw,
+                                      int c) {
+  const int64_t pt = i / c;  // flat (view, point)
+  const int ch = (int)(i - pt * c);
+  const int64_t view = pt / p;
+  const float ix = __ldg(coords + 2 * pt);
+  const float iy = __ldg(coords + 2 * pt + 1);
+  const float ixc = fminf(fmaxf(ix, 0.0f), fw - 1.0f);
+  const float iyc = fminf(fmaxf(iy, 0.0f), fh - 1.0f);
+  const float x0 = fminf(fmaxf(floorf(ixc), 0.0f), fw - 2.0f);
+  const float y0 = fminf(fmaxf(floorf(iyc), 0.0f), fh - 2.0f);
+  const int64_t row = (view * fh + (int64_t)y0) * fw + (int64_t)x0;
+  return {row * c + ch, ch, ixc - x0, iyc - y0};
+}
+
 template <typename T>
 __global__ void gather_bilinear_border_kernel(
     const T* __restrict__ feats, const float* __restrict__ coords,
@@ -44,26 +68,45 @@ __global__ void gather_bilinear_border_kernel(
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
-    const int64_t pt = i / c;  // flat (view, point)
-    const int ch = (int)(i - pt * c);
-    const int64_t view = pt / p;
-    const float ix = __ldg(coords + 2 * pt);
-    const float iy = __ldg(coords + 2 * pt + 1);
-    const float ixc = fminf(fmaxf(ix, 0.0f), fw - 1.0f);
-    const float iyc = fminf(fmaxf(iy, 0.0f), fh - 1.0f);
-    const float x0 = fminf(fmaxf(floorf(ixc), 0.0f), fw - 2.0f);
-    const float y0 = fminf(fmaxf(floorf(iyc), 0.0f), fh - 2.0f);
-    const float tx = ixc - x0;
-    const float ty = iyc - y0;
-    const int64_t row = (view * fh + (int64_t)y0) * fw + (int64_t)x0;
-    const T* t00 = feats + row * c + ch;
+    const Tap t = locate(coords, i, p, fh, fw, c);
+    const T* t00 = feats + t.offset;
     const T* t10 = t00 + (int64_t)fw * c;
     const float f00 = load_f32(t00), f01 = load_f32(t00 + c);
     const float f10 = load_f32(t10), f11 = load_f32(t10 + c);
-    const float top = f00 * (1.0f - tx) + f01 * tx;
-    const float bot = f10 * (1.0f - tx) + f11 * tx;
-    store(out + i, top * (1.0f - ty) + bot * ty);
+    const float top = f00 * (1.0f - t.tx) + f01 * t.tx;
+    const float bot = f10 * (1.0f - t.tx) + f11 * t.tx;
+    store(out + i, top * (1.0f - t.ty) + bot * t.ty);
   }
+}
+
+__device__ __forceinline__ float lerp_rn(float a, float b, float t) {
+  return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, t)), __fmul_rn(b, t));
+}
+
+__global__ void gather_bilinear_border_u8_kernel(
+    const uint8_t* __restrict__ codes, const float* __restrict__ coords,
+    const float* __restrict__ scale, const float* __restrict__ offset,
+    __nv_bfloat16* __restrict__ out, int64_t p, int64_t total, int fh,
+    int fw, int c) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const Tap t = locate(coords, i, p, fh, fw, c);
+    const uint8_t* t00 = codes + t.offset;
+    const uint8_t* t10 = t00 + (int64_t)fw * c;
+    const float top = lerp_rn(__ldg(t00), __ldg(t00 + c), t.tx);
+    const float bot = lerp_rn(__ldg(t10), __ldg(t10 + c), t.tx);
+    const float code = lerp_rn(top, bot, t.ty);
+    out[i] = __float2bfloat16(
+        __fsub_rn(__fmul_rn(code, __ldg(scale + t.ch)), __ldg(offset + t.ch)));
+  }
+}
+
+// 256 threads a block; a grid-stride loop covers what 132 SMs x 16
+// blocks do not
+int grid_for(int64_t total) {
+  const int64_t blocks = (total + 255) / 256;
+  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
 template <typename T>
@@ -71,11 +114,7 @@ int launch(const void* feats, const void* coords, void* out, int64_t v,
            int64_t p, int fh, int fw, int c, void* stream) {
   const int64_t total = v * p * c;
   if (total == 0) return 0;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  // a grid-stride loop covers the rest: 132 SMs x 16 blocks of 256
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  gather_bilinear_border_kernel<T><<<(unsigned)blocks, threads, 0,
+  gather_bilinear_border_kernel<T><<<grid_for(total), 256, 0,
                                      (cudaStream_t)stream>>>(
       (const T*)feats, (const float*)coords, (T*)out, p, total, fh, fw, c);
   return (int)cudaGetLastError();
@@ -99,4 +138,21 @@ extern "C" int gather_bilinear_border_bf16(const void* feats,
                                            int64_t v, int64_t p, int fh,
                                            int fw, int c, void* stream) {
   return launch<__nv_bfloat16>(feats, coords, out, v, p, fh, fw, c, stream);
+}
+
+// codes [v, fh, fw, c] u8 contiguous; coords [v, p, 2] f32 contiguous;
+// scale, offset [c] f32; out [v, p, c] bf16. As above otherwise.
+extern "C" int gather_bilinear_border_u8(const void* codes,
+                                         const void* coords,
+                                         const void* scale,
+                                         const void* offset, void* out,
+                                         int64_t v, int64_t p, int fh,
+                                         int fw, int c, void* stream) {
+  const int64_t total = v * p * c;
+  if (total == 0) return 0;
+  gather_bilinear_border_u8_kernel<<<grid_for(total), 256, 0,
+                                     (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const float*)coords, (const float*)scale,
+      (const float*)offset, (__nv_bfloat16*)out, p, total, fh, fw, c);
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 ``IBRNetWithNeuRay`` (port of ``neuray_tpu/models/agg_net.py``).
 
 The projection dict arrives as [rfn, qn, rn, dn, f] tensors and stays
-view-major, [rfn, qn*rn, dn, f], through the aggregation.
+view-major, [rfn, qn*rn, dn, f], through the aggregation. With a
+compute ``dtype`` (bf16) the prob embedding and the aggregation's dense
+layers run in it, and density and colours come out in it.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neuray_tpu_torch.models.blocks import Dense
 from neuray_tpu_torch.models.ibrnet import IBRNetWithNeuRay
 
 
@@ -26,11 +29,13 @@ def get_dir_diff(prj_dir: torch.Tensor, que_dir: torch.Tensor) -> torch.Tensor:
 
 class DefaultAggregationNet(nn.Module):
 
-    def __init__(self, neuray_dim: int = 32, sample_num: int = 64):
+    def __init__(self, neuray_dim: int = 32, sample_num: int = 64,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.prob_embed_0 = nn.Linear(neuray_dim + 2, neuray_dim)
-        self.prob_embed_1 = nn.Linear(neuray_dim, neuray_dim)
-        self.agg_impl = IBRNetWithNeuRay(neuray_dim, n_samples=sample_num)
+        self.prob_embed_0 = Dense(neuray_dim + 2, neuray_dim, dtype=dtype)
+        self.prob_embed_1 = Dense(neuray_dim, neuray_dim, dtype=dtype)
+        self.agg_impl = IBRNetWithNeuRay(neuray_dim, n_samples=sample_num,
+                                         dtype=dtype)
 
     def forward(self, prj: Dict[str, torch.Tensor], que_dir: torch.Tensor,
                 pos_stride: int = 1, pos: torch.Tensor | None = None):

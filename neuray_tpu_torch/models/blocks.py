@@ -8,12 +8,78 @@ Submodule names follow the flax parameter tree so that the weight
 bridge (``utils/params.py``) maps each leaf by one rule per leaf kind.
 A ``ReflectConv`` is itself the conv (its weight sits where flax keeps
 ``<name>/Conv_0/kernel``).
+
+``dtype`` is flax's ``dtype=``: the compute dtype of the convs and
+dense layers (``Conv``, ``Dense``), None for the input's. Parameters
+stay f32; a layer with a compute dtype casts its input, weight and bias
+to it and returns it (``ComputeCast``). Normalization statistics are
+always f32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class ComputeCast:
+    """Mixin of a layer whose f32 parameters compute in ``compute_dtype``
+    (None: in the input's dtype, with the parameters as they are).
+
+    ``cast_param`` gives a parameter in the compute dtype. The copy is
+    made at the first call after the parameter was created, loaded or
+    moved (its device, storage or version changed) and reused after
+    that, so a call adds no cast kernel for its weights. (A parameter
+    made under ``torch.inference_mode`` has no version counter: writing
+    it in place there is not seen.) The copies are detached: the
+    reduced-precision route renders; it does not train.
+    """
+    compute_dtype: torch.dtype | None = None
+
+    def cast_param(self, name: str) -> torch.Tensor | None:
+        p = getattr(self, name)
+        if p is None or self.compute_dtype is None:
+            return p
+        casts = self.__dict__.setdefault("_param_casts", {})
+        key = (p.device, p.data_ptr(),
+               None if p.is_inference() else p._version)
+        hit = casts.get(name)
+        if hit is None or hit[0] != key:
+            with torch.no_grad():
+                hit = casts[name] = (key, p.detach().to(self.compute_dtype))
+        return hit[1]
+
+
+class Dense(ComputeCast, nn.Linear):
+    """``nn.Linear`` with a compute dtype (flax ``nn.Dense(dtype=)``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.linear(x.to(self.compute_dtype), self.cast_param("weight"),
+                        self.cast_param("bias"))
+
+
+class Conv(ComputeCast, nn.Conv2d):
+    """``nn.Conv2d`` (no padding) with a compute dtype (flax
+    ``nn.Conv(dtype=)``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return F.conv2d(x, self.weight, self.bias, self.stride)
+        return F.conv2d(x.to(self.compute_dtype), self.cast_param("weight"),
+                        self.cast_param("bias"), self.stride)
 
 
 class InstanceNorm(nn.Module):
@@ -33,36 +99,36 @@ class InstanceNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class ReflectConv(nn.Conv2d):
+class ReflectConv(Conv):
     """Reflect padding (explicit ``F.pad``) then a VALID conv; the
     padding defaults to (k-1)//2 and may be set for even kernels."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int | None = None,
-                 bias: bool = False):
-        super().__init__(in_ch, out_ch, kernel_size, stride, padding=0,
-                         bias=bias)
+                 bias: bool = False, dtype: torch.dtype | None = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, bias, dtype)
         self.pad = (kernel_size - 1) // 2 if padding is None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pad:
             x = F.pad(x, (self.pad,) * 4, mode="reflect")
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        return super().forward(x)
 
 
 class BasicBlock(nn.Module):
     """ResNet BasicBlock with InstanceNorm."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 use_downsample: bool = False):
+                 use_downsample: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = ReflectConv(in_planes, planes, 3, stride)
+        self.conv1 = ReflectConv(in_planes, planes, 3, stride, dtype=dtype)
         self.bn1 = InstanceNorm(planes)
-        self.conv2 = ReflectConv(planes, planes, 3)
+        self.conv2 = ReflectConv(planes, planes, 3, dtype=dtype)
         self.bn2 = InstanceNorm(planes)
         if use_downsample:
-            self.down_conv = nn.Conv2d(in_planes, planes, 1, stride,
-                                       bias=False)
+            self.down_conv = Conv(in_planes, planes, 1, stride, bias=False,
+                                  dtype=dtype)
             self.down_norm = InstanceNorm(planes)
         else:
             self.down_conv = None
@@ -79,14 +145,16 @@ class BasicBlock(nn.Module):
 class ResidualBlock(nn.Module):
     """Pre-activation residual block with InstanceNorm."""
 
-    def __init__(self, dim_in: int, dim_out: int, dim_inter: int | None = None):
+    def __init__(self, dim_in: int, dim_out: int, dim_inter: int | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         dim_inter = dim_inter or dim_out
         self.norm1 = InstanceNorm(dim_in)
-        self.conv1 = ReflectConv(dim_in, dim_inter, 3, padding=1)
+        self.conv1 = ReflectConv(dim_in, dim_inter, 3, padding=1, dtype=dtype)
         self.norm2 = InstanceNorm(dim_inter)
-        self.conv2 = ReflectConv(dim_inter, dim_out, 3, padding=1)
-        self.short_cut = (nn.Conv2d(dim_in, dim_out, 1)
+        self.conv2 = ReflectConv(dim_inter, dim_out, 3, padding=1,
+                                 dtype=dtype)
+        self.short_cut = (Conv(dim_in, dim_out, 1, dtype=dtype)
                           if dim_in != dim_out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,10 +191,11 @@ class ConvELU(nn.Module):
     """Reflect conv (with bias) + InstanceNorm + ELU."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
-                 stride: int = 1):
+                 stride: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
         self.conv = ReflectConv(in_ch, features, kernel_size, stride,
-                                padding=(kernel_size - 1) // 2, bias=True)
+                                padding=(kernel_size - 1) // 2, bias=True,
+                                dtype=dtype)
         self.bn = InstanceNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -136,9 +205,10 @@ class ConvELU(nn.Module):
 class UpConv(nn.Module):
     """2x align-corners bilinear upsample + ConvELU."""
 
-    def __init__(self, in_ch: int, features: int, kernel_size: int = 3):
+    def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = ConvELU(in_ch, features, kernel_size, 1)
+        self.conv = ConvELU(in_ch, features, kernel_size, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(upsample2x_align_corners(x))

@@ -6,7 +6,9 @@ ray feature into mixture parameters: mean [.., 2] (softplus), var
 [.., 2] (softplus + 0.05), aw [.., 1] (sigmoid) and vis [.., 1]
 (sigmoid). The heads run one after another; the JAX package packs them
 into one block-diagonal MLP for the TPU's matrix unit, which changes
-only the summation order.
+only the summation order. With a compute ``dtype`` (bf16) the heads,
+their finals and the added constant run in it, and every output is
+cast to f32 (the mixture's CDF math needs f32).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from neuray_tpu_torch.models.blocks import Dense
 from neuray_tpu_torch.ops import mixture
 
 
@@ -22,11 +25,11 @@ class _Head(nn.Module):
     constant."""
 
     def __init__(self, out_dim: int, final: str, bias_val: float = 0.0,
-                 width: int = 32):
+                 width: int = 32, dtype: torch.dtype | None = None):
         super().__init__()
-        self.fc0 = nn.Linear(width, width)
-        self.fc1 = nn.Linear(width, width)
-        self.fc2 = nn.Linear(width, out_dim)
+        self.fc0 = Dense(width, width, dtype=dtype)
+        self.fc1 = Dense(width, width, dtype=dtype)
+        self.fc2 = Dense(width, out_dim, dtype=dtype)
         self.final = {"softplus": F.softplus, "sigmoid": torch.sigmoid}[final]
         self.bias_val = bias_val
 
@@ -38,22 +41,25 @@ class _Head(nn.Module):
 class MixtureLogisticsDistDecoder(nn.Module):
 
     def __init__(self, use_vis: bool = True, width: int = 32,
-                 bias_val: float = 0.05):
+                 bias_val: float = 0.05, dtype: torch.dtype | None = None):
         super().__init__()
         self.use_vis = use_vis
-        self.mean_decoder = _Head(2, "softplus", width=width)
-        self.var_decoder = _Head(2, "softplus", bias_val, width)
-        self.aw_decoder = _Head(1, "sigmoid", width=width)
+        self.dtype = dtype
+        self.mean_decoder = _Head(2, "softplus", width=width, dtype=dtype)
+        self.var_decoder = _Head(2, "softplus", bias_val, width, dtype)
+        self.aw_decoder = _Head(1, "sigmoid", width=width, dtype=dtype)
         if use_vis:
-            self.vis_decoder = _Head(1, "sigmoid", width=width)
+            self.vis_decoder = _Head(1, "sigmoid", width=width, dtype=dtype)
 
     def forward(self, feats: torch.Tensor):
         """feats [..., 32] -> (mean [.., 2], var [.., 2], vis [.., 1] or
         None, aw [.., 1]), all f32."""
-        feats = feats.float()
-        vis = self.vis_decoder(feats) if self.use_vis else None
-        return (self.mean_decoder(feats), self.var_decoder(feats), vis,
-                self.aw_decoder(feats))
+        if self.dtype is None:
+            feats = feats.float()
+        vis = self.vis_decoder(feats).float() if self.use_vis else None
+        return (self.mean_decoder(feats).float(),
+                self.var_decoder(feats).float(), vis,
+                self.aw_decoder(feats).float())
 
     def compute_prob(self, depth, interval, mean, var, vis, aw, is_ref,
                      depth_range):

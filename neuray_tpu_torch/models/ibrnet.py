@@ -3,6 +3,14 @@
 
 Inputs stay view-major, [rfn, b, dn, f], the layout the projection and
 gather stage produces; views are reduced over dim 0.
+
+With a compute ``dtype`` (bf16) the dense layers run in it and the rest
+follows the JAX package's type promotion op for op: a bf16 tensor with
+an f32 tensor of one or more dims gives f32 in both libraries. So the
+view weights (from the f32 mask) make the pooled statistics f32, the
+f32 position table makes the strided and exact passes' attention input
+f32 while the focused pass's fractional positions are cast to bf16,
+and LayerNorm, whose parameters are f32, returns f32.
 """
 from __future__ import annotations
 
@@ -12,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from neuray_tpu_torch.models.blocks import Dense
 
 
 def sinusoid_pos_encoding(d_hid: int, n_samples: int) -> np.ndarray:
@@ -36,15 +46,20 @@ def sinusoid_pos_at(d_hid: int, pos: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     """Post-LN multi-head self-attention with residual (LayerNorm eps
-    1e-6). Q, K and V come from one packed projection of the input."""
+    1e-6). Q, K and V come from one packed projection of the input.
+    With a compute ``dtype`` the projections, scores, softmax and ``fc``
+    run in it; the residual keeps the input's dtype and LayerNorm
+    computes in f32."""
 
-    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int):
+    def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
-        self.w_qs = nn.Linear(d_model, n_head * d_k, bias=False)
-        self.w_ks = nn.Linear(d_model, n_head * d_k, bias=False)
-        self.w_vs = nn.Linear(d_model, n_head * d_v, bias=False)
-        self.fc = nn.Linear(n_head * d_v, d_model, bias=False)
+        self.dtype = dtype
+        self.w_qs = Dense(d_model, n_head * d_k, bias=False, dtype=dtype)
+        self.w_ks = Dense(d_model, n_head * d_k, bias=False, dtype=dtype)
+        self.w_vs = Dense(d_model, n_head * d_v, bias=False, dtype=dtype)
+        self.fc = Dense(n_head * d_v, d_model, bias=False, dtype=dtype)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None):
@@ -58,9 +73,9 @@ class MultiHeadAttention(nn.Module):
         """
         b, l, _ = x.shape
         nk = self.n_head * self.d_k
-        w = torch.cat([self.w_qs.weight, self.w_ks.weight,
-                       self.w_vs.weight], dim=0)
-        qkv = F.linear(x, w)
+        w = torch.cat([m.cast_param("weight")
+                       for m in (self.w_qs, self.w_ks, self.w_vs)], dim=0)
+        qkv = F.linear(x if self.dtype is None else x.to(self.dtype), w)
         q = qkv[..., :nk].reshape(b, l, self.n_head, self.d_k).transpose(1, 2)
         k = qkv[..., nk:2 * nk].reshape(
             b, l, self.n_head, self.d_k).transpose(1, 2)
@@ -71,7 +86,7 @@ class MultiHeadAttention(nn.Module):
             attn = attn.masked_fill(mask[:, None] == 0, -1e9)
         attn = torch.softmax(attn, dim=-1)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, l, -1)
-        return self.layer_norm(self.fc(out) + x)
+        return self.layer_norm((self.fc(out) + x).float())
 
 
 def fused_mean_variance(x: torch.Tensor, weight: torch.Tensor, dim: int = 0):
@@ -89,11 +104,12 @@ class _Seq(nn.Module):
     """Linear ``fc0..`` chain with ELU between layers and ``final`` after
     the last."""
 
-    def __init__(self, in_dim: int, widths: Sequence[int], final: str = "elu"):
+    def __init__(self, in_dim: int, widths: Sequence[int], final: str = "elu",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.n = len(widths)
         for i, wd in enumerate(widths):
-            self.add_module(f"fc{i}", nn.Linear(in_dim, wd))
+            self.add_module(f"fc{i}", Dense(in_dim, wd, dtype=dtype))
             in_dim = wd
         self.final = _FINALS[final]
 
@@ -109,17 +125,22 @@ class _SplitSeq(nn.Module):
     per_view]) with fc0's weight split at ``split``: the shared part is
     contracted once per point instead of once per (point, view)."""
 
-    def __init__(self, split: int, per_view: int, widths: Sequence[int]):
+    def __init__(self, split: int, per_view: int, widths: Sequence[int],
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.split = split
-        self.fc0 = nn.Linear(split + per_view, widths[0])
-        self.fc1 = nn.Linear(widths[0], widths[1])
+        self.fc0 = Dense(split + per_view, widths[0], dtype=dtype)
+        self.fc1 = Dense(widths[0], widths[1], dtype=dtype)
 
     def forward(self, shared: torch.Tensor,
                 per_view: torch.Tensor) -> torch.Tensor:
-        w = self.fc0.weight
+        w = self.fc0.cast_param("weight")
+        dt = self.fc0.compute_dtype
+        if dt is not None:
+            shared, per_view = shared.to(dt), per_view.to(dt)
         x = (F.linear(shared, w[:, :self.split])
-             + F.linear(per_view, w[:, self.split:], self.fc0.bias))
+             + F.linear(per_view, w[:, self.split:],
+                        self.fc0.cast_param("bias")))
         return F.elu(self.fc1(F.elu(x)))
 
 
@@ -133,19 +154,19 @@ class IBRNetWithNeuRay(nn.Module):
     """
 
     def __init__(self, neuray_in_dim: int = 32, in_feat_ch: int = 32,
-                 n_samples: int = 64):
+                 n_samples: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
         c = in_feat_ch + 3
         self.n_samples = n_samples
-        self.ray_dir_fc = _Seq(4, (16, c), "elu")
-        self.neuray_fc = _Seq(neuray_in_dim, (8, 1), "none")
-        self.base_fc = _SplitSeq(4 * c, c + neuray_in_dim, (64, 32))
-        self.vis_fc = _Seq(32, (32, 33), "elu")
-        self.vis_fc2 = _Seq(32, (32, 1), "sigmoid")
-        self.geometry_fc = _Seq(32 * 2 + 1, (64, 16), "elu")
-        self.ray_attention = MultiHeadAttention(4, 16, 4, 4)
-        self.out_geometry_fc = _Seq(16, (16, 1), "relu")
-        self.rgb_fc = _Seq(32 + 1 + 4, (16, 8, 1), "none")
+        self.ray_dir_fc = _Seq(4, (16, c), "elu", dtype)
+        self.neuray_fc = _Seq(neuray_in_dim, (8, 1), "none", dtype)
+        self.base_fc = _SplitSeq(4 * c, c + neuray_in_dim, (64, 32), dtype)
+        self.vis_fc = _Seq(32, (32, 33), "elu", dtype)
+        self.vis_fc2 = _Seq(32, (32, 1), "sigmoid", dtype)
+        self.geometry_fc = _Seq(32 * 2 + 1, (64, 16), "elu", dtype)
+        self.ray_attention = MultiHeadAttention(4, 16, 4, 4, dtype)
+        self.out_geometry_fc = _Seq(16, (16, 1), "relu", dtype)
+        self.rgb_fc = _Seq(32 + 1 + 4, (16, 8, 1), "none", dtype)
 
     def forward(self, rgb_feat, neuray_feat, ray_diff, mask,
                 pos_stride: int = 1, pos: torch.Tensor | None = None):
@@ -184,7 +205,7 @@ class IBRNetWithNeuRay(nn.Module):
             table = sinusoid_pos_encoding(
                 16, max(self.n_samples, dn * pos_stride))[:, ::pos_stride]
             globalfeat = globalfeat + torch.from_numpy(
-                table[:, :dn]).to(globalfeat)
+                table[:, :dn]).to(globalfeat.device)
         attn_mask = (num_valid_obs > 1).to(globalfeat.dtype)
         globalfeat = self.ray_attention(globalfeat, mask=attn_mask)
         sigma = self.out_geometry_fc(globalfeat)

@@ -6,6 +6,9 @@ computes cross-view rgb/depth consistency features by unprojecting each
 view's depth map and sampling every view at the reprojections, then
 encodes [imgs(3), depth(1), diff(8)] with a ``ResEncoder`` plus a
 strided depth skip path. Maps are channels-last at the public functions.
+With a compute ``dtype`` (bf16) only the encoder, the skip path and the
+output conv run in it: the diff features are a function of the f32
+data and stay f32.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from neuray_tpu_torch.models.blocks import nchw_to_nhwc, nhwc_to_nchw
+from neuray_tpu_torch.models.blocks import Conv, nchw_to_nhwc, nhwc_to_nchw
 from neuray_tpu_torch.models.resunet import ResEncoder
 from neuray_tpu_torch.ops.gather import gather_bilinear_border
 from neuray_tpu_torch.ops.geometry import (
@@ -131,13 +134,14 @@ class DepthInitNet(nn.Module):
     pixel subgrid (``get_diff_feats_subgrid``), an eval-time saving of
     the encode; s = 1 is exact."""
 
-    def __init__(self, diff_scale: int = 1):
+    def __init__(self, diff_scale: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.diff_scale = diff_scale
-        self.res_net = ResEncoder()
-        self.depth_skip_0 = nn.Conv2d(1, 8, 2, 2)
-        self.depth_skip_1 = nn.Conv2d(8, 16, 2, 2)
-        self.conv_out = nn.Conv2d(48, 32, 1)
+        self.res_net = ResEncoder(dtype)
+        self.depth_skip_0 = Conv(1, 8, 2, 2, dtype=dtype)
+        self.depth_skip_1 = Conv(8, 16, 2, 2, dtype=dtype)
+        self.conv_out = Conv(48, 32, 1, dtype=dtype)
 
     def forward(self, ref: Dict[str, torch.Tensor]) -> torch.Tensor:
         imgs, depth = ref["imgs"], ref["depth"]

@@ -6,10 +6,17 @@ Per scene, ``encode_ref`` runs the depth init net, the image encoder and
 the vis encoder once and packs ``[ray_feats | img_feats]`` into one
 64-channel map. Per ray chunk, ``NeurayRenderer.render_chunk`` samples
 depths, projects every sample into every reference view, gathers rgb
-and features (``ops.gather`` kernel on a CUDA tensor), decodes the
+and features (``ops.gather`` kernels on a CUDA tensor), decodes the
 visibility mixture, aggregates across views and composites; then the
 same again at importance-resampled fine depths. ``render_full`` runs
 the encode and the chunk loop under ``torch.inference_mode()``.
+
+``use_bf16`` runs the convs and dense layers in bf16 (parameters stay
+f32; their bf16 copies are cast once, ``blocks.ComputeCast``) and
+gathers from a bf16 map and image; with ``gather_quant="u8"`` the map
+and the image are u8 codes instead, dequantized to bf16 by the gather
+(``build_gather_cache``). Outputs then come in the JAX package's dtypes:
+colours and hit probabilities bf16, depths f32.
 
 The eval drivers decide on the host which rays to render. A probe pass
 at ``probe_sample_num`` samples scores every ray (``probe_chunk``) and,
@@ -51,7 +58,8 @@ from neuray_tpu_torch.ops import geometry as G
 from neuray_tpu_torch.ops import sampling as S
 from neuray_tpu_torch.ops.compositing import (
     alpha_values2hit_prob, composite_colors)
-from neuray_tpu_torch.ops.interpolate import interpolate_feature_map
+from neuray_tpu_torch.ops.interpolate import (
+    image_to_u8, interpolate_feature_map, quantize_u8)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -60,7 +68,8 @@ Tensors = Dict[str, torch.Tensor]
 class RenderConfig:
     """Static renderer configuration, the same fields as the JAX
     package's ``RenderConfig``. ``NeurayRenderer`` raises
-    ``NotImplementedError`` on a value this port does not run yet."""
+    ``NotImplementedError`` on a value this port does not run yet.
+    ``gather_quant="u8"`` takes effect only with ``use_bf16``."""
     vis_encoder_type: str = "default"
     dist_decoder_type: str = "mixture_logistics"
     agg_net_type: str = "default"
@@ -123,8 +132,19 @@ _SUPPORTED = {
     "vis_encoder_type": "default", "dist_decoder_type": "mixture_logistics",
     "agg_net_type": "default", "init_net_type": "depth",
     "use_dr_prediction": False, "use_self_hit_prob": False,
-    "use_depth_loss": False, "use_bf16": False, "gather_quant": "none",
+    "use_depth_loss": False,
 }
+
+
+def u8_map_supported(h: int, w: int, fh: int, fw: int) -> bool:
+    """Whether the JAX package builds its u8 map for an (h, w) image with
+    an (fh, fw) feature grid (its ``fused_map_supported``: the fused
+    row's 7-pixel rgb patch must cover a feature cell's span). The port
+    keeps its codes unpacked, which fit any size, but takes the same
+    route so both packages quantize the same scenes; elsewhere the u8
+    route falls back to bf16 maps."""
+    ratio = max((w - 1) / fw, (h - 1) / fh)
+    return 1.5 * ratio + 1.0 <= 7
 
 
 class NeurayRenderer(nn.Module):
@@ -139,17 +159,18 @@ class NeurayRenderer(nn.Module):
                     f"RenderConfig.{field}={getattr(cfg, field)!r} is not "
                     f"ported yet (only {value!r})")
         self.cfg = cfg
-        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16)
-        self.vis_encoder = DefaultVisEncoder()
-        self.dist_decoder = MixtureLogisticsDistDecoder(cfg.use_vis)
+        dt = torch.bfloat16 if cfg.use_bf16 else None
+        self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, dt)
+        self.vis_encoder = DefaultVisEncoder(dt)
+        self.dist_decoder = MixtureLogisticsDistDecoder(cfg.use_vis, dtype=dt)
         self.agg_net = DefaultAggregationNet(cfg.neuray_dim,
-                                             cfg.depth_sample_num)
+                                             cfg.depth_sample_num, dt)
         if cfg.use_hierarchical_sampling:
             self.fine_dist_decoder = MixtureLogisticsDistDecoder(
-                cfg.fine_use_vis)
+                cfg.fine_use_vis, dtype=dt)
             self.fine_agg_net = DefaultAggregationNet(
-                cfg.neuray_dim, cfg.fine_depth_sample_num)
-        self.init_net = DepthInitNet(cfg.init_diff_scale)
+                cfg.neuray_dim, cfg.fine_depth_sample_num, dt)
+        self.init_net = DepthInitNet(cfg.init_diff_scale, dt)
 
     # ---------------- per-scene stages ----------------
 
@@ -165,15 +186,41 @@ class NeurayRenderer(nn.Module):
         return img_feats, ray_feats
 
     @staticmethod
-    def build_gather_cache(ref: Tensors) -> Tensors:
-        """Add ``feats``, the [rfn, fh, fw, 64] map [ray_feats |
-        img_feats] that one gather per (point, view) samples."""
+    def build_gather_cache(ref: Tensors, use_bf16: bool = False,
+                           gather_quant: str = "none") -> Tensors:
+        """Add the maps the per-chunk gathers sample: ``feats``, the
+        [rfn, fh, fw, 64] map [ray_feats | img_feats] sampled once per
+        (point, view), and ``rgb_map``, the [rfn, h, w, 3] image.
+
+        Three routes, as the JAX package's config selects them: f32 (the
+        f32 map, the image itself); ``use_bf16`` (both in bf16); and
+        ``use_bf16`` with ``gather_quant="u8"`` where
+        ``u8_map_supported`` (else bf16): the bf16-rounded map quantized
+        per channel (``quantize_u8``) and the image as 8-bit codes,
+        with their f32 dequantization ``feats_scale``, ``feats_offset``
+        [64] and ``rgb_scale``, ``rgb_offset`` [3]."""
         if ref["ray_feats"].shape[1:3] != ref["img_feats"].shape[1:3]:
             raise NotImplementedError(
                 "ray_feats and img_feats at different resolutions")
         ref = dict(ref)
-        ref["feats"] = torch.cat([ref["ray_feats"], ref["img_feats"]],
-                                 dim=-1).contiguous()
+        feats = torch.cat([ref["ray_feats"], ref["img_feats"]], dim=-1)
+        imgs = ref["imgs"]
+        if not use_bf16:
+            ref["feats"], ref["rgb_map"] = feats.contiguous(), imgs
+            return ref
+        feats = feats.to(torch.bfloat16)
+        if gather_quant == "u8" and u8_map_supported(
+                *imgs.shape[1:3], *feats.shape[1:3]):
+            codes, scale, offset = quantize_u8(feats)
+            ref["feats"], ref["rgb_map"] = codes, image_to_u8(imgs)
+            ref["feats_scale"], ref["feats_offset"] = (scale.float(),
+                                                       offset.float())
+            ref["rgb_scale"] = torch.full((3,), 1.0 / 255.0,
+                                          device=imgs.device)
+            ref["rgb_offset"] = torch.zeros(3, device=imgs.device)
+        else:
+            ref["feats"] = feats.contiguous()
+            ref["rgb_map"] = imgs.to(torch.bfloat16)
         return ref
 
     # ---------------- per-chunk rendering ----------------
@@ -181,15 +228,23 @@ class NeurayRenderer(nn.Module):
     def _project_and_gather(self, ref: Tensors, que_pts: torch.Tensor):
         """Project sample points [qn, rn, dn, 3] into every ref view and
         gather rgb (full res, align_corners=True) and the 64-ch feature
-        map (1/4 res, align_corners=False), both border-padded."""
+        map (1/4 res, align_corners=False), both border-padded, in the
+        maps' dtype (bf16 from u8 maps)."""
         qn, rn, dn, _ = que_pts.shape
         rfn, h, w, _ = ref["imgs"].shape
         pts = que_pts.reshape(qn * rn * dn, 3)
         prj_dir, prj_pts, prj_depth, prj_mask = G.project_points_ref_views(
             ref["poses"], ref["Ks"], h, w, pts)
         maskf = prj_mask.float()
-        prj_rgb = interpolate_feature_map(ref["imgs"], prj_pts, maskf, h, w)
-        out = interpolate_feature_map(ref["feats"], prj_pts, maskf, h, w)
+
+        def dequant(name):
+            return ((ref[name + "_scale"], ref[name + "_offset"])
+                    if name + "_scale" in ref else None)
+
+        prj_rgb = interpolate_feature_map(ref["rgb_map"], prj_pts, maskf, h,
+                                          w, dequant("rgb"))
+        out = interpolate_feature_map(ref["feats"], prj_pts, maskf, h, w,
+                                      dequant("feats"))
         nf = ref["ray_feats"].shape[-1]
 
         def rs(x):
@@ -334,6 +389,7 @@ class NeurayRenderer(nn.Module):
         """
         c = self.cfg
         que_depth, hit_prob = self._probe_hit_prob(ref, que)
+        hit_prob = hit_prob.float()   # bf16 compute: score and windows in f32
         score = hit_prob.sum(dim=-1)
         frac = torch.cumsum(hit_prob, dim=-1) / (score[..., None] + 1e-12)
         q, pn = c.focus_quantile, c.probe_sample_num
@@ -427,7 +483,8 @@ def encode_ref(renderer: NeurayRenderer, ref: Tensors) -> Tensors:
     ref_c = dict(ref)
     ref_c["img_feats"] = img_feats
     ref_c["ray_feats"] = ray_feats
-    return renderer.build_gather_cache(ref_c)
+    return renderer.build_gather_cache(ref_c, renderer.cfg.use_bf16,
+                                       renderer.cfg.gather_quant)
 
 
 # ---------------- chunk loops ----------------
@@ -528,8 +585,12 @@ def render_focus_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
 # ---------------- host helpers ----------------
 
 def _host(x) -> np.ndarray:
-    """A tensor on any device, or an array, as a numpy array."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A tensor on any device, or an array, as a numpy array (bf16 as
+    f32, which holds every bf16 value)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def _take_rays(que: Tensors, idx: np.ndarray) -> Tensors:

@@ -2,7 +2,8 @@
 
 ``ResUNetLight`` is the per-reference-view image encoder (32-ch features
 at 1/4 input resolution); ``ResEncoder`` is the 12-channel input encoder
-of the depth init net. Both take and return channels-last maps.
+of the depth init net. Both take and return channels-last maps; with
+a compute ``dtype`` (bf16) the output is in that dtype.
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from neuray_tpu_torch.models.blocks import (
-    InstanceNorm, ReflectConv, BasicBlock, ConvELU, UpConv, nhwc_to_nchw,
-    nchw_to_nhwc)
+    InstanceNorm, ReflectConv, BasicBlock, Conv, ConvELU, UpConv,
+    nhwc_to_nchw, nchw_to_nhwc)
 
 
 def _skip_pad_concat(x_up: torch.Tensor, x_skip: torch.Tensor) -> torch.Tensor:
@@ -32,12 +33,13 @@ class _ResLayer(nn.Module):
     """A stack of BasicBlocks ``block0..``; the first may stride/downsample."""
 
     def __init__(self, in_planes: int, planes: int, blocks: int,
-                 stride: int = 1):
+                 stride: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
         needs_down = stride != 1 or in_planes != planes
-        self.block0 = BasicBlock(in_planes, planes, stride, needs_down)
+        self.block0 = BasicBlock(in_planes, planes, stride, needs_down, dtype)
         for i in range(1, blocks):
-            self.add_module(f"block{i}", BasicBlock(planes, planes))
+            self.add_module(f"block{i}",
+                            BasicBlock(planes, planes, dtype=dtype))
         self.blocks = blocks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,13 +53,13 @@ class _ResUNet(nn.Module):
     decoder: upconv3 -> skip concat x2 -> iconv3 -> upconv2 -> skip
     concat x1 -> iconv2 -> out_conv."""
 
-    def __init__(self, out_dim: int):
+    def __init__(self, out_dim: int, dtype: torch.dtype | None):
         super().__init__()
-        self.upconv3 = UpConv(128, 64, 3)
-        self.iconv3 = ConvELU(128, 64, 3, 1)
-        self.upconv2 = UpConv(64, 32, 3)
-        self.iconv2 = ConvELU(64, 32, 3, 1)
-        self.out_conv = nn.Conv2d(32, out_dim, 1)
+        self.upconv3 = UpConv(128, 64, 3, dtype)
+        self.iconv3 = ConvELU(128, 64, 3, 1, dtype)
+        self.upconv2 = UpConv(64, 32, 3, dtype)
+        self.iconv2 = ConvELU(64, 32, 3, 1, dtype)
+        self.out_conv = Conv(32, out_dim, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [n, h, w, c_in] -> [n, ~h/4, ~w/4, out_dim]."""
@@ -76,23 +78,25 @@ class ResUNetLight(_ResUNet):
     inplanes=16."""
 
     def __init__(self, in_dim: int = 3, layers: Sequence[int] = (2, 3, 6, 3),
-                 out_dim: int = 32, inplanes: int = 32):
-        super().__init__(out_dim)
-        self.conv1 = ReflectConv(in_dim, inplanes, 7, 2, padding=3)
+                 out_dim: int = 32, inplanes: int = 32,
+                 dtype: torch.dtype | None = None):
+        super().__init__(out_dim, dtype)
+        self.conv1 = ReflectConv(in_dim, inplanes, 7, 2, padding=3,
+                                 dtype=dtype)
         self.bn1 = InstanceNorm(inplanes)
-        self.layer1 = _ResLayer(inplanes, 32, layers[0], 2)
-        self.layer2 = _ResLayer(32, 64, layers[1], 2)
-        self.layer3 = _ResLayer(64, 128, layers[2], 2)
+        self.layer1 = _ResLayer(inplanes, 32, layers[0], 2, dtype)
+        self.layer2 = _ResLayer(32, 64, layers[1], 2, dtype)
+        self.layer3 = _ResLayer(64, 128, layers[2], 2, dtype)
 
 
 class ResEncoder(_ResUNet):
     """12-channel input encoder for the depth init net (conv1 8x8 stride
     2 pad 2, layers (2,2,2), 32-ch output at 1/4 input resolution)."""
 
-    def __init__(self):
-        super().__init__(32)
-        self.conv1 = ReflectConv(12, 32, 8, 2, padding=2)
+    def __init__(self, dtype: torch.dtype | None = None):
+        super().__init__(32, dtype)
+        self.conv1 = ReflectConv(12, 32, 8, 2, padding=2, dtype=dtype)
         self.bn1 = InstanceNorm(32)
-        self.layer1 = _ResLayer(32, 32, 2, 2)
-        self.layer2 = _ResLayer(32, 64, 2, 2)
-        self.layer3 = _ResLayer(64, 128, 2, 2)
+        self.layer1 = _ResLayer(32, 32, 2, 2, dtype)
+        self.layer2 = _ResLayer(32, 64, 2, 2, dtype)
+        self.layer3 = _ResLayer(64, 128, 2, 2, dtype)

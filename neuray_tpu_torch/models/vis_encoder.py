@@ -1,23 +1,24 @@
 """Visibility-feature encoder G' -> G (port of
 ``neuray_tpu/models/vis_encoder.py``): a conv stack over
-concat(img_feats 32, ray_feats 32) giving the refined 32-ch map."""
+concat(img_feats 32, ray_feats 32) giving the refined 32-ch map, in
+the compute ``dtype`` when one is given."""
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
 from neuray_tpu_torch.models.blocks import (
-    ReflectConv, ResidualBlock, nchw_to_nhwc, nhwc_to_nchw)
+    Conv, ReflectConv, ResidualBlock, nchw_to_nhwc, nhwc_to_nchw)
 
 
 class DefaultVisEncoder(nn.Module):
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv_in = ReflectConv(64, 32, 3)
-        self.res0 = ResidualBlock(32, 32)
-        self.res1 = ResidualBlock(32, 32)
-        self.conv_out = nn.Conv2d(32, 32, 1, bias=False)
+        self.conv_in = ReflectConv(64, 32, 3, dtype=dtype)
+        self.res0 = ResidualBlock(32, 32, dtype=dtype)
+        self.res1 = ResidualBlock(32, 32, dtype=dtype)
+        self.conv_out = Conv(32, 32, 1, bias=False, dtype=dtype)
 
     def forward(self, ray_feats: torch.Tensor,
                 img_feats: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ plain versions only).
 never ``F.grid_sample``. The render path samples with border padding
 through ``interpolate_feature_map``, which converts the coordinates to
 feature-map pixels and hands them to ``ops.gather.gather_bilinear_border``
-(the CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor).
+(the CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor), or
+for a u8 map to ``gather_bilinear_border_u8``. ``quantize_u8`` and
+``image_to_u8`` make the u8 maps.
 
 Maps are channels-last [n, h, w, c], points are (x, y) pixel coords.
 """
@@ -13,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from neuray_tpu_torch.ops.gather import gather_bilinear_border
+from neuray_tpu_torch.ops.gather import (
+    gather_bilinear_border, gather_bilinear_border_u8)
 
 
 def feature_pixel_coords(points: torch.Tensor, h: int, w: int, fh: int,
@@ -85,17 +88,48 @@ def grid_sample_nhwc(feats: torch.Tensor, points: torch.Tensor,
             + tap(y1c, x0c) * w10 + tap(y1c, x1c) * w11)
 
 
-def interpolate_feature_map(feats, coords, mask, h: int, w: int):
+def interpolate_feature_map(feats, coords, mask, h: int, w: int,
+                            dequant=None):
     """Border-padded bilinear gather + zero out invalid projections;
-    align_corners=True iff the map is at full (h, w) resolution.
+    align_corners=True iff the map is at full (h, w) resolution. The mask
+    is applied in the output's dtype.
 
-    feats [n, fh, fw, c]; coords [n, pn, 2]; mask [n, pn] -> [n, pn, c]
+    feats [n, fh, fw, c]; coords [n, pn, 2]; mask [n, pn] -> [n, pn, c].
+    dequant: (scale, offset), each [c] f32, for a u8 map; the output is
+    then bf16 ``sample * scale - offset``.
     """
     fh, fw = feats.shape[1:3]
     align = (fh == h and fw == w)
     pix = feature_pixel_coords(coords, h, w, fh, fw, align)
-    out = gather_bilinear_border(feats, pix)
+    if dequant is None:
+        out = gather_bilinear_border(feats, pix)
+    else:
+        out = gather_bilinear_border_u8(feats, pix, *dequant)
     return out * mask[..., None].to(out.dtype)
+
+
+def quantize_u8(feats: torch.Tensor):
+    """Per-channel symmetric u8 quantization, as the JAX package's
+    ``make_fused_scene_map_u8`` quantizes its feature quad: scale =
+    max(absmax over views, rows and columns, 1e-8) / 127 in f32, codes
+    clip(round(x / scale) + 128, 0, 255) (round half to even), and the
+    scale and the offset 128 * scale stored as bf16 (128 is a power of
+    two, so the offset is exact in bf16).
+
+    feats [n, fh, fw, c] -> (codes [n, fh, fw, c] u8, scale [c] bf16,
+    offset [c] bf16)
+    """
+    f = feats.float()
+    scale = f.abs().amax(dim=(0, 1, 2)).clamp_min(1e-8) / 127.0
+    codes = (torch.round(f / scale) + 128.0).clamp(0.0, 255.0)
+    scale = scale.to(torch.bfloat16)
+    return codes.to(torch.uint8), scale, scale * 128.0
+
+
+def image_to_u8(imgs: torch.Tensor) -> torch.Tensor:
+    """Images in [0, 1] -> u8 codes clip(round(x * 255), 0, 255): exact
+    for images from 8-bit sources (dequantized with scale 1/255)."""
+    return (imgs.float() * 255.0).round().clamp(0.0, 255.0).to(torch.uint8)
 
 
 def masked_mean_var(feats: torch.Tensor, mask: torch.Tensor, dim: int):

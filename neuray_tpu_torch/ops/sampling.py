@@ -63,7 +63,11 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
     domain. The output is monotone, so no sort is needed.
 
     Like the JAX version it normalizes with ``depth_range[0]`` for every
-    query view (the two differ only when qn > 1).
+    query view (the two differ only when qn > 1). A bf16 hit_prob keeps
+    the JAX version's rounding: the pdf and the CDF are bf16, the CDF
+    summed in f32 and rounded once (JAX's bf16 triangular dot), and the
+    bin width ``cdf_above - cdf_below`` is rounded to bf16 before the
+    f32 interpolation.
 
     depth, hit_prob: [qn, rn, dn]; depth_range [qn, 2] -> [qn, rn, fdn]
     """
@@ -78,7 +82,7 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
 
     hit_prob = hit_prob + 1e-5
     pdf = hit_prob / hit_prob.sum(dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cumsum(pdf.float(), dim=-1).to(pdf.dtype)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # *,dn+1
 
     interval = 1.0 / fdn
@@ -87,7 +91,7 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
     u = u.expand(*cdf.shape[:-1], fdn).contiguous()
 
     # first index with cdf > u; cdf[0] = 0 < u, so ``above`` >= 1
-    above = torch.searchsorted(cdf.contiguous(), u, right=True)
+    above = torch.searchsorted(cdf.float().contiguous(), u, right=True)
     below = above - 1
     above = above.clamp_max(cdf.shape[-1] - 1)
     cdf_below = torch.gather(cdf, -1, below)

@@ -155,7 +155,6 @@ def test_cpu_render_never_launches_the_kernel(inputs):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_bf16", True), ("gather_quant", "u8"),
     ("use_dr_prediction", True), ("use_self_hit_prob", True),
     ("init_net_type", "cost_volume"), ("use_depth_loss", True)])
 def test_unported_config_raises(field, value):
@@ -164,7 +163,25 @@ def test_unported_config_raises(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("init_diff_scale", 2), ("fine_depth_use_all", True)])
+    ("init_diff_scale", 2), ("fine_depth_use_all", True),
+    ("use_bf16", True), ("gather_quant", "u8")])
 def test_ported_config_builds(field, value):
     renderer = R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
     assert getattr(renderer.cfg, field) == value
+
+
+def test_u8_without_bf16_renders_f32(inputs, torch_out):
+    """gather_quant="u8" takes effect only with use_bf16 (as in the JAX
+    package): alone it is the f32 render, bit for bit."""
+    ref, que, params = inputs
+    renderer = R.NeurayRenderer(R.RenderConfig(**{**CFG,
+                                                  "gather_quant": "u8"}))
+    load_flax_params(renderer, params)
+    ref_c = R.encode_ref(renderer.eval(),
+                         {k: torch.from_numpy(v) for k, v in ref.items()})
+    assert ref_c["feats"].dtype == torch.float32
+    out = _numpy(R.render_rays(renderer, ref_c,
+                               {k: torch.from_numpy(v) for k, v in que.items()}))
+    assert out.keys() == torch_out.keys()
+    for k, v in out.items():
+        np.testing.assert_array_equal(v, torch_out[k], err_msg=k)
