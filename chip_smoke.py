@@ -5,9 +5,14 @@
 Phases, one line each, any failure raising (exit code != 0):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the CUDA gather kernel from ``neuray_tpu_torch/csrc`` with nvcc;
-  3. hold the kernel to its plain PyTorch twin on the card at the render
-     path's four shapes (coords partly out of range), f32 and bf16, and
-     time both with CUDA events;
+  3. hold the kernel to its plain PyTorch twin on the card, each
+     instantiation (f32, bf16, u8) and entry (map pixels; the fused render
+     entry, which converts frame points and applies the mask) at the
+     render path's shapes (``KERNEL_SHAPES``, coords partly out of range),
+     with the bounds of ``hold``; per row print the kernel's device time
+     (``torch.profiler``), its CUDA-event time, the plain version's and
+     ``F.grid_sample``'s, and the bound (``gather_bound``: bytes moved
+     over the HBM rate against flops over the f32 rate) with its share;
   4. render a full 800x800 novel view of the synthetic sphere from 8
      reference views, 64 coarse + 64 fine samples, with the trained
      ``tools/bench_weights.npz``: warm-up frame, then a timed frame whose
@@ -39,9 +44,9 @@ Phases, one line each, any failure raising (exit code != 0):
      ``tests/test_torch_port_bf16.py::test_passes_on_the_same_inputs``
      measures the port against the JAX package at 0.012-0.039 per pass
      and holds it to this bound.
-Phase 3 also holds the u8 instantiation (codes dequantized per channel
-into bf16) to its plain twin at the per-chunk shapes of phase 7.
-The line before the last is a JSON record of the kernel's instantiations;
+The line before the last is a JSON record of the kernel's instantiations
+(time, bound and grid_sample's time at each one's 64-channel per-chunk
+gather, ``KEY_ROWS``);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing anything.
 """
@@ -100,79 +105,196 @@ def time_ms(fn, *args, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, *args, n=10):
+    """Device time per call from ``torch.profiler``'s device rows: the
+    summed duration of every device event of n calls, over n (at the
+    per-chunk shapes a CUDA-event window measures the wrapper's host
+    time, not the kernel). Returns (ms, device events per call, names)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device time")
+    total_us = sum(e.time_range.elapsed_us() for e in events)
+    return (total_us / n / 1e3, len(events) / n,
+            sorted({e.name for e in events}))
+
+
+# the bound: NVIDIA H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+
+def gather_bound(GA, feats, pix, masked=False):
+    """The least time the card could take for one gather of feats
+    [v, fh, fw, c] at map pixels pix [v, p, 2]: each input byte read once
+    (the coordinates; the map pixels the taps touch, counted distinct;
+    the mask; u8's scale and offset) and each output byte written once,
+    over the HBM rate, against 9 flops a channel (three lerps of two
+    multiplies and an add; u8 +2 to dequantize, the mask +1) over the f32
+    rate. Returns (bytes, touched pixels, bound ms, "bytes" or
+    "operations")."""
+    v, fh, fw, c = feats.shape
+    p = pix.shape[1]
+    u8 = feats.dtype == torch.uint8
+    out_size = 2 if u8 else feats.element_size()
+    touched = GA.touched_pixels(pix, fh, fw)
+    nbytes = (touched * c * feats.element_size() + v * p * 2 * 4
+              + v * p * c * out_size + (v * p * 4 if masked else 0)
+              + (2 * c * 4 if u8 else 0))
+    flops = v * p * c * (9 + 2 * u8 + masked)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (nbytes, touched, 1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def random_coords(g, dev, v, p, fh, fw):
-    """[v, p, 2] map pixels with a 5% margin outside the map on every
-    side: the border clamp."""
+    """[v, p, 2] pixels of an (fh, fw) grid with a 5% margin outside it
+    on every side: the border clamp."""
     coords = torch.rand((v, p, 2), generator=g, device=dev)
     coords = coords * torch.tensor([fw * 1.1, fh * 1.1], device=dev)
     return (coords - torch.tensor([fw * 0.05, fh * 0.05],
                                   device=dev)).contiguous()
 
 
+def grid_sample_fn(feats, pix):
+    """The one PyTorch call that computes the plain-coords gather on the
+    same map, timed as ``library_ms`` and used nowhere in the port:
+    ``F.grid_sample`` on the NCHW view, coords normalized for
+    align_corners=True, border padding. Its grid takes the map's dtype."""
+    import torch.nn.functional as F
+    fh, fw = feats.shape[1:3]
+    nchw = feats.permute(0, 3, 1, 2)
+    scale = torch.tensor([2.0 / (fw - 1), 2.0 / (fh - 1)], device=pix.device)
+    grid = (pix * scale - 1.0)[:, None].to(feats.dtype)
+
+    def call():
+        return F.grid_sample(nchw, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+    return call
+
+
+F32, BF16, U8 = torch.float32, torch.bfloat16, torch.uint8
+# phase 3: (what, map h, map w, channels, points per view, instantiations,
+# also the fused render entry); the frame is (H, W), RFN views
+KERNEL_SHAPES = [
+    ("feats 1/4 res, per chunk", H // 4, W // 4, 64, CHUNK * DN,
+     (F32, BF16), True),
+    ("rgb full res, per chunk", H, W, 3, CHUNK * DN, (F32, BF16), True),
+    ("feats 1/4 res, per focused chunk", H // 4, W // 4, 64,
+     CHUNK * BENCH_PROFILE["focus_sample_num"], (F32, BF16, U8), True),
+    ("rgb full res, per focused chunk", H, W, 3,
+     CHUNK * BENCH_PROFILE["focus_sample_num"], (F32, BF16, U8), True),
+    ("diff [depth|rgb], per encode", H, W, 4, RFN * H * W, (F32, BF16),
+     False),
+    ("diff [depth|rgb], per half-grid encode", H // 2, W // 2, 4,
+     RFN * (H // 2) * (W // 2), (F32, BF16), False)]
+# each instantiation's row in the kernels line: its 64-channel per-chunk
+# gather on the main path (u8 serves the focused passes)
+KEY_ROWS = {"f32": "feats 1/4 res, per chunk",
+            "bf16": "feats 1/4 res, per chunk",
+            "u8": "feats 1/4 res, per focused chunk"}
+
+
+def hold(name, out, ref):
+    """Kernel against its plain version on the same inputs. f32: 1e-5
+    (FMA contraction in the lerps; the coordinate conversion divides in
+    IEEE f32 on both sides, see ``feature_pixel_coords``). bf16: both
+    lerp in f32 and round once, so contraction may put a value on the
+    other side of a rounding boundary: one bf16 ulp of values in [0, 1),
+    2^-8. u8 at map pixels: bit-equal (every f32 op rounded as the plain
+    version's); the fused u8 entry: one bf16 ulp of the output. Returns
+    the max abs error."""
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype == F32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    elif name == "u8":
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"u8 kernel differs from its plain version "
+                               f"by {err}")
+    else:
+        rtol = 2.0 ** -8 if name == "u8 fused" else 0.0
+        torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                   atol=2.0 ** -8)
+    return err
+
+
 def check_kernel(GA, dev):
-    """Kernel vs plain version at the main path's shapes, for each
-    instantiation. Returns {instantiation: (max error over its shapes,
-    kernel ms, plain ms of its per-chunk 64-channel feature gather)}."""
+    """Phase 3: every instantiation and entry against its plain version
+    at the main path's shapes, timed (kernel device time from the
+    profiler, CUDA-event times of kernel and plain version, grid_sample's
+    time) beside its bound. Returns (the rows, {instantiation: its
+    kernels-line stats})."""
     g = torch.Generator(device=dev).manual_seed(0)
-    stats = {}
-    # (what, views, map h, map w, channels, points per view)
-    shapes = [("feats 1/4 res, per chunk", RFN, H // 4, W // 4, 64,
-               CHUNK * DN),
-              ("rgb full res, per chunk", RFN, H, W, 3, CHUNK * DN),
-              ("diff [depth|rgb], per encode", RFN, H, W, 4, RFN * H * W),
-              ("diff [depth|rgb], per half-grid encode", RFN, H // 2,
-               W // 2, 4, RFN * (H // 2) * (W // 2))]
-    for name, v, fh, fw, c, p in shapes:
-        coords = random_coords(g, dev, v, p, fh, fw)
+    rows, stats = [], {}
+    for what, fh, fw, c, p, dtypes, fused in KERNEL_SHAPES:
+        v = RFN
         base = torch.rand((v, fh, fw, c), generator=g, device=dev)
-        # bf16: both sides lerp in f32 and round once; FMA contraction
-        # may put the f32 value on the other side of a rounding boundary,
-        # so the bound is one bf16 ulp of values in [0, 1): 2^-8
-        for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
-                                  (torch.bfloat16, 2.0 ** -8, 0.0)):
-            feats = base.to(dtype)
-            out = GA.gather_bilinear_border(feats, coords)
-            ref = GA.gather_bilinear_border_ref(feats, coords)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
-                                       atol=atol)
-            ms = time_ms(GA.gather_bilinear_border, feats, coords)
-            plain_ms = time_ms(GA.gather_bilinear_border_ref, feats, coords)
-            log(f"kernel check: {name} [{v},{fh},{fw},{c}] x [{v},{p},2] "
-                f"{str(dtype)[6:]}: max_abs_err {err:.3g}, kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-            key = "f32" if dtype == torch.float32 else "bf16"
-            worst, *times = stats.get(key, (0.0, ms, plain_ms))
-            stats[key] = (max(worst, err), *times)
-    # u8 codes, dequantized per channel: at phase 7's per-chunk shapes (the
-    # focused coarse pass, 12 samples). The kernel rounds its f32
-    # arithmetic op for op as the plain twin does; the bound is one bf16
-    # ulp of the output
-    p = CHUNK * BENCH_PROFILE["focus_sample_num"]
-    for name, v, fh, fw, c in (("u8 feats 1/4 res, per chunk", RFN, H // 4,
-                                W // 4, 64),
-                               ("u8 rgb full res, per chunk", RFN, H, W, 3)):
-        coords = random_coords(g, dev, v, p, fh, fw)
-        codes = torch.randint(0, 256, (v, fh, fw, c), generator=g,
-                              device=dev, dtype=torch.uint8)
-        scale = torch.rand(c, generator=g, device=dev) / 127.0
-        offset = scale * 128.0
-        args = (codes, coords, scale, offset)
-        out = GA.gather_bilinear_border_u8(*args)
-        ref = GA.gather_bilinear_border_u8_ref(*args)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -8,
-                                   atol=1e-6)
-        ms = time_ms(GA.gather_bilinear_border_u8, *args)
-        plain_ms = time_ms(GA.gather_bilinear_border_u8_ref, *args)
-        log(f"kernel check: {name} [{v},{fh},{fw},{c}] x [{v},{p},2] u8: "
-            f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
-        worst, *times = stats.get("u8", (0.0, ms, plain_ms))
-        stats["u8"] = (max(worst, err), *times)
-    return stats
+        pix = random_coords(g, dev, v, p, fh, fw)
+        points = random_coords(g, dev, v, p, H, W)
+        mask = (torch.rand((v, p), generator=g, device=dev) > 0.3).float()
+        for dtype in dtypes:
+            name = {F32: "f32", BF16: "bf16", U8: "u8"}[dtype]
+            if dtype == U8:
+                feats = torch.randint(0, 256, (v, fh, fw, c), generator=g,
+                                      device=dev, dtype=U8)
+                scale = torch.rand(c, generator=g, device=dev) / 127.0
+                dq = (scale, scale * 128.0)
+                kernel = (GA.gather_bilinear_border_u8, feats, pix, *dq)
+                plain = GA.gather_bilinear_border_u8_ref
+            else:
+                feats, dq = base.to(dtype), None
+                kernel = (GA.gather_bilinear_border, feats, pix)
+                plain = GA.gather_bilinear_border_ref
+            jobs = [("map pixels", kernel, (plain, *kernel[1:]),
+                     pix, False, None if dq else grid_sample_fn(feats, pix))]
+            if fused:
+                args = (feats, points, mask, H, W, dq)
+                jobs.append((
+                    "fused", (GA.gather_feature_map, *args),
+                    (GA.gather_feature_map_ref, *args),
+                    GA.feature_pixel_coords(points, H, W, fh, fw,
+                                            fh == H and fw == W),
+                    True, None))
+            for entry, (fn, *a), (ref_fn, *ra), at, masked, lib in jobs:
+                err = hold(name if entry == "map pixels" else name + " fused",
+                           fn(*a), ref_fn(*ra))
+                ms = time_ms(fn, *a)
+                dev_ms, per_call, kernels = device_ms(fn, *a)
+                plain_ms = time_ms(ref_fn, *ra)
+                lib_ms = None if lib is None else time_ms(lib)
+                nbytes, touched, bound_ms, bound_by = gather_bound(
+                    GA, feats, at, masked)
+                row = dict(what=what, entry=entry, dtype=name,
+                           shape=[v, fh, fw, c], points=p, max_abs_err=err,
+                           device_ms=dev_ms, event_ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bytes=nbytes,
+                           touched_pixels=touched, bound_ms=bound_ms,
+                           bound_by=bound_by, share=bound_ms / dev_ms)
+                rows.append(row)
+                lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+                log(f"kernel check: {what} [{v},{fh},{fw},{c}] x [{v},{p},2]"
+                    f" {name} {entry}: max_abs_err {err:.3g}; kernel device "
+                    f"{dev_ms:.4f} ms ({per_call:g} launch/call {kernels}), "
+                    f"events {ms:.4f} ms; plain {plain_ms:.4f} ms; grid_sample"
+                    f" {lib_txt}; bound {nbytes} B ({touched} pixels touched)"
+                    f" = {1e3 * bound_ms:.2f} us ({bound_by}), share "
+                    f"{bound_ms / dev_ms:.3f}")
+                s = stats.setdefault(name, {"max_abs_err": 0.0})
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                if entry == "map pixels" and what == KEY_ROWS[name]:
+                    s.update(ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
+    return rows, stats
 
 
 def psnr(img, gt):
@@ -467,7 +589,7 @@ def main():
     log(f"build: gather_bilinear_border.cu in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernel_stats = check_kernel(GA, dev)
+    _, kernel_stats = check_kernel(GA, dev)
 
     # ---- full frame ----
     rng = np.random.RandomState(0)
@@ -538,8 +660,7 @@ def main():
         "source": "neuray_tpu_torch/csrc/gather_bilinear_border.cu",
         "replaces": "neuray_tpu/ops/pallas/gather.py:85",
         "launches": sum(c[k] for c in counted),
-        "max_abs_err": kernel_stats[k][0], "ms": kernel_stats[k][1],
-        "plain_ms": kernel_stats[k][2]} for k in ("f32", "bf16", "u8")]}))
+        **kernel_stats[k]} for k in ("f32", "bf16", "u8")]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

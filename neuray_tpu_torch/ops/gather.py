@@ -1,5 +1,5 @@
 """Border-clamped bilinear gather: the wrapper of the hand-written CUDA
-kernel ``csrc/gather_bilinear_border.cu`` and its plain PyTorch twin.
+kernel ``csrc/gather_bilinear_border.cu`` and its plain PyTorch twins.
 
 Port of the Pallas TPU kernel ``neuray_tpu/ops/pallas/gather.py``
 (``gather_bilinear_border``). On the TPU that kernel lost to XLA's
@@ -7,14 +7,19 @@ gather and the renderer kept jnp gathers; here the kernel serves every
 border gather of the render path: the per-chunk rgb and 64-channel
 feature gathers and the scene encode's cross-view diff gather.
 
-``gather_bilinear_border`` samples an f32 or bf16 map;
-``gather_bilinear_border_u8`` samples a map of u8 codes and dequantizes
-each channel affinely into bf16 (the u8 gather map of the bf16 route).
-Each runs its kernel on CUDA tensors and its plain version on CPU
-tensors, and nothing else: a CUDA tensor the kernel does not take
-raises. The kernels are compiled with nvcc at first use, from the source
-in this repository, into ``build/neuray_tpu_torch/`` keyed by a hash of
-the source, and loaded with ctypes.
+Three entries, each one kernel launch on CUDA tensors and its plain
+version on CPU tensors, and nothing else (a CUDA tensor the kernel does
+not take raises):
+- ``gather_bilinear_border``: an f32 or bf16 map at map-pixel coords;
+- ``gather_bilinear_border_u8``: a map of u8 codes, dequantized per
+  channel into bf16 (the u8 gather map of the bf16 route);
+- ``gather_feature_map``: the render's gather
+  (``interpolate_feature_map``): points of the (h, w) frame converted to
+  map pixels as ``feature_pixel_coords`` does, the gather (u8 with a
+  dequant) and the projection mask, in one launch.
+The kernels are compiled with nvcc at first use, from the source in this
+repository, into ``build/neuray_tpu_torch/`` keyed by a hash of the
+source, and loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -42,6 +47,12 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"f32": 0, "bf16": 0, "u8": 0}
 
+_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8"}
+# where the kernel finds a point: the map's own pixels, or a point of the
+# (h, w) frame with align_corners True or False (feature_pixel_coords)
+_MAP_PIXELS, _ALIGN_CORNERS, _HALF_PIXEL = 0, 1, 2
+_MAX_VIEWS, _MAX_POINTS = 65535, 2 ** 30   # the grid's y; int32 point math
+
 
 def reset_launches() -> None:
     global LAUNCHES
@@ -56,17 +67,50 @@ def _count(dtype_name: str) -> None:
     LAUNCHES_BY_DTYPE[dtype_name] += 1
 
 
+# ---------------- plain versions ----------------
+
+def feature_pixel_coords(points: torch.Tensor, h: int, w: int, fh: int,
+                         fw: int, align_corners: bool) -> torch.Tensor:
+    """Map (x, y) pixel coords of an (h, w) frame to pixel coords of an
+    (fh, fw) feature map through the reference's normalize ->
+    grid_sample-unnormalize round trip (``neuray_tpu/ops/interpolate.py:
+    56-63``). points [..., 2] -> [..., 2] f32 contiguous.
+
+    The divisor is a 0-dim tensor, not a Python number: PyTorch's CUDA
+    kernel multiplies by the reciprocal of a scalar divisor, one bit off
+    the IEEE division that the JAX package and the kernel's prologue do;
+    a tensor divisor divides on both devices."""
+    def norm(x, size):
+        return x / torch.full((), size - 1.0, device=x.device) * 2.0 - 1.0
+
+    x_norm, y_norm = norm(points[..., 0], w), norm(points[..., 1], h)
+    if align_corners:
+        ix = (x_norm + 1.0) / 2.0 * (fw - 1.0)
+        iy = (y_norm + 1.0) / 2.0 * (fh - 1.0)
+    else:
+        ix = ((x_norm + 1.0) * fw - 1.0) / 2.0
+        iy = ((y_norm + 1.0) * fh - 1.0) / 2.0
+    return torch.stack([ix, iy], dim=-1)
+
+
+def _anchor(coords: torch.Tensor, fh: int, fw: int):
+    """The border clamp of map-pixel coords [v, p, 2]: the top-left tap
+    (x0, y0) in [0, fw-2] x [0, fh-2] (f32 integers) and the weights
+    (tx, ty) in [0, 1], each [v, p]."""
+    ixc = coords[..., 0].clamp(0.0, fw - 1.0)
+    iyc = coords[..., 1].clamp(0.0, fh - 1.0)
+    x0 = torch.floor(ixc).clamp(0.0, fw - 2.0)
+    y0 = torch.floor(iyc).clamp(0.0, fh - 2.0)
+    return x0, y0, ixc - x0, iyc - y0
+
+
 def _lerp_f32(feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """The border-clamped bilinear sample of feats [v, fh, fw, c] (any
     dtype, read as f32) at coords [v, p, 2] -> [v, p, c] f32."""
     v, fh, fw, c = feats.shape
     p = coords.shape[1]
-    ixc = coords[..., 0].clamp(0.0, fw - 1.0)
-    iyc = coords[..., 1].clamp(0.0, fh - 1.0)
-    x0 = torch.floor(ixc).clamp(0.0, fw - 2.0)
-    y0 = torch.floor(iyc).clamp(0.0, fh - 2.0)
-    tx = (ixc - x0)[..., None]
-    ty = (iyc - y0)[..., None]
+    x0, y0, tx, ty = _anchor(coords, fh, fw)
+    tx, ty = tx[..., None], ty[..., None]
     idx = y0.long() * fw + x0.long()                           # v,p
     flat = feats.reshape(v, fh * fw, c).float()
 
@@ -76,6 +120,19 @@ def _lerp_f32(feats: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     top = tap(0) * (1 - tx) + tap(1) * tx
     bot = tap(fw) * (1 - tx) + tap(fw + 1) * tx
     return top * (1 - ty) + bot * ty
+
+
+def touched_pixels(coords: torch.Tensor, fh: int, fw: int) -> int:
+    """The distinct map pixels that the four taps of map-pixel coords
+    [v, p, 2] read, summed over the views: the map bytes a gather must
+    move are this times c times the element size."""
+    v = coords.shape[0]
+    x0, y0, _, _ = _anchor(coords, fh, fw)
+    idx = y0.long() * fw + x0.long()
+    seen = torch.zeros(v, fh * fw, dtype=torch.bool, device=coords.device)
+    for offset in (0, 1, fw, fw + 1):
+        seen.scatter_(1, idx + offset, True)
+    return int(seen.sum())
 
 
 def gather_bilinear_border_ref(feats: torch.Tensor,
@@ -99,6 +156,21 @@ def gather_bilinear_border_u8_ref(codes: torch.Tensor, coords: torch.Tensor,
     """
     return (_lerp_f32(codes, coords) * scale - offset).to(torch.bfloat16)
 
+
+def gather_feature_map_ref(feats: torch.Tensor, points: torch.Tensor,
+                           mask: torch.Tensor, h: int, w: int,
+                           dequant=None) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_feature_map``, on any device: the
+    conversion to map pixels (align_corners iff the map is (h, w)), the
+    gather, then the mask in the output's dtype."""
+    fh, fw = feats.shape[1:3]
+    pix = feature_pixel_coords(points, h, w, fh, fw, fh == h and fw == w)
+    out = (gather_bilinear_border_ref(feats, pix) if dequant is None
+           else gather_bilinear_border_u8_ref(feats, pix, *dequant))
+    return out * mask[..., None].to(out.dtype)
+
+
+# ---------------- the kernel ----------------
 
 def _nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -134,65 +206,120 @@ def build_library() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
+def load_library() -> dict:
+    """Build (at first use) and load the kernel library; returns its
+    entries, bound once, by the map's dtype name."""
     lib = ctypes.CDLL(str(build_library()))
-    shape = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.gather_bilinear_border_f32,
-               lib.gather_bilinear_border_bf16):
-        fn.argtypes = [ctypes.c_void_p] * 3 + shape
+    fns = {}
+    for name in _NAMES.values():
+        fn = getattr(lib, f"gather_border_{name}")
+        # map, coords, mask, scale, offset, out; v, p, fh, fw, c, frame,
+        # h, w, n, vec; stream
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.gather_bilinear_border_u8.argtypes = [ctypes.c_void_p] * 5 + shape
-    lib.gather_bilinear_border_u8.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return fns
 
 
-def _check_args(feats: torch.Tensor, coords: torch.Tensor,
-                dtypes=(torch.float32, torch.bfloat16)) -> None:
-    if feats.dim() != 4:
-        raise ValueError(f"feats must be [v, fh, fw, c], got {tuple(feats.shape)}")
-    v, fh, fw, c = feats.shape
-    if coords.dim() != 3 or coords.shape[0] != v or coords.shape[2] != 2:
-        raise ValueError(f"coords must be [{v}, p, 2], got {tuple(coords.shape)}")
+def _route(feats: torch.Tensor) -> tuple[int, bool]:
+    """The kernel's path for this map: (elements a lane loads, whether as
+    one vector). 16-byte vectors where a pixel's channels are a whole
+    number of them and the map is aligned to one, else 8-byte vectors
+    likewise, else one lane a channel with scalar loads (chosen by
+    ``gather_bench.py --routes``: one thread a point for c = 3 or 4 was
+    slower on the render's coords)."""
+    size = feats.element_size()
+    c = feats.shape[-1]
+    for vec in (16, 8):
+        if (c * size) % vec == 0 and feats.data_ptr() % vec == 0:
+            return vec // size, True
+    return 1, False
+
+
+def _check(feats: torch.Tensor, coords: torch.Tensor, dtypes,
+           mask: torch.Tensor | None = None, dequant=None) -> bool:
+    """Check every argument once. Returns True for CPU tensors (the plain
+    version), False for CUDA tensors (the kernel); raises on what the
+    kernel does not take."""
+    shape, cshape = feats.shape, coords.shape
+    if len(shape) != 4:
+        raise ValueError(f"feats must be [v, fh, fw, c], got {tuple(shape)}")
+    v, fh, fw, c = shape
+    if len(cshape) != 3 or cshape[0] != v or cshape[2] != 2:
+        raise ValueError(f"coords must be [{v}, p, 2], got {tuple(cshape)}")
     if fh < 2 or fw < 2:
         raise ValueError(f"the map must be at least 2x2, got {fh}x{fw}")
+    if v > _MAX_VIEWS or cshape[1] > _MAX_POINTS:
+        raise ValueError(f"at most {_MAX_VIEWS} views of {_MAX_POINTS} "
+                         f"points, got {v} of {cshape[1]}")
     if feats.dtype not in dtypes:
         raise TypeError(f"feats must be one of {dtypes}, got {feats.dtype}")
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if not (feats.is_contiguous() and coords.is_contiguous()):
-        raise ValueError("feats and coords must be contiguous")
-    if feats.device != coords.device:
-        raise ValueError(f"feats on {feats.device}, coords on {coords.device}")
-
-
-def _check_device(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (the plain version), False for CUDA tensors
-    (the kernel); raises on anything else."""
-    dev = tensors[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no gather for device {dev}")
-    if dev.type == "cuda" and any(t.requires_grad for t in tensors):
+    others = [coords]
+    if mask is not None:
+        if mask.shape != cshape[:2] or mask.dtype != torch.float32:
+            raise TypeError(f"mask must be float32 {tuple(cshape[:2])}, got "
+                            f"{mask.dtype} {tuple(mask.shape)}")
+        others.append(mask)
+    if dequant is not None:
+        for name, x in zip(("scale", "offset"), dequant):
+            if x.shape != (c,) or x.dtype != torch.float32:
+                raise TypeError(f"{name} must be float32 [{c}], got "
+                                f"{x.dtype} {tuple(x.shape)}")
+            others.append(x)
+    cuda, index = feats.is_cuda, feats.get_device()
+    grad = feats.requires_grad
+    contiguous = feats.is_contiguous()
+    for x in others:
+        if x.is_cuda != cuda or x.get_device() != index:
+            raise ValueError(f"every tensor must be on {feats.device}")
+        grad = grad or x.requires_grad
+        contiguous = contiguous and x.is_contiguous()
+    if not contiguous:
+        raise ValueError("every tensor must be contiguous")
+    if not cuda:
+        if feats.device.type != "cpu":
+            raise ValueError(f"no gather for device {feats.device}")
+        return True
+    if grad:
         raise RuntimeError(
-            "gather_bilinear_border has no backward kernel yet; it comes "
-            "with training support. Run the render under "
-            "torch.inference_mode().")
-    return dev.type == "cpu"
+            "the gather kernel has no backward yet; it comes with training "
+            "support. Run the render under torch.inference_mode().")
+    return False
 
 
-def _launch(name: str, dtype_name: str, ptrs, out: torch.Tensor, shape):
-    """Launch the kernel ``name`` on the current stream of out's device
-    and count it; raises on a launch error."""
+def _launch(feats: torch.Tensor, coords: torch.Tensor,
+            mask: torch.Tensor | None, dequant, frame: int, h: int,
+            w: int) -> torch.Tensor:
+    """One launch on the current stream of feats' device, counted; raises
+    on a launch error."""
+    v, fh, fw, c = feats.shape
+    p = coords.shape[1]
+    name = _NAMES[feats.dtype]
+    out = torch.empty((v, p, c), device=feats.device, dtype=(
+        torch.bfloat16 if name == "u8" else feats.dtype))
     if out.numel() == 0:
         return out
-    fn = getattr(load_library(), name)
-    with torch.cuda.device(out.device):
-        err = fn(*ptrs, out.data_ptr(), *shape,
-                 torch.cuda.current_stream().cuda_stream)
+    n, vec = _route(feats)
+    scale, offset = (None, None) if dequant is None else (
+        dequant[0].data_ptr(), dequant[1].data_ptr())
+    index = feats.device.index
+    args = (feats.data_ptr(), coords.data_ptr(),
+            None if mask is None else mask.data_ptr(), scale, offset,
+            out.data_ptr(), v, p, fh, fw, c, frame, h, w, n, vec,
+            torch._C._cuda_getCurrentRawStream(index))
+    fn = load_library()[name]
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _count(dtype_name)
+        raise RuntimeError(f"gather_border_{name} launch failed: "
+                           f"cudaError {err}")
+    _count(name)
     return out
 
 
@@ -202,16 +329,9 @@ def gather_bilinear_border(feats: torch.Tensor,
     feature-map pixels -> [v, p, c] border-clamped bilinear samples in
     feats' dtype. CUDA tensors go through the kernel, CPU tensors
     through ``gather_bilinear_border_ref``."""
-    _check_args(feats, coords)
-    if _check_device(feats, coords):
+    if _check(feats, coords, (torch.float32, torch.bfloat16)):
         return gather_bilinear_border_ref(feats, coords)
-    v, fh, fw, c = feats.shape
-    p = coords.shape[1]
-    out = torch.empty((v, p, c), dtype=feats.dtype, device=feats.device)
-    name = "f32" if feats.dtype == torch.float32 else "bf16"
-    return _launch(f"gather_bilinear_border_{name}", name,
-                   (feats.data_ptr(), coords.data_ptr()), out,
-                   (v, p, fh, fw, c))
+    return _launch(feats, coords, None, None, _MAP_PIXELS, 0, 0)
 
 
 def gather_bilinear_border_u8(codes: torch.Tensor, coords: torch.Tensor,
@@ -222,19 +342,24 @@ def gather_bilinear_border_u8(codes: torch.Tensor, coords: torch.Tensor,
     sample of the codes, dequantized per channel as
     ``sample * scale - offset``. CUDA tensors go through the kernel, CPU
     tensors through ``gather_bilinear_border_u8_ref``."""
-    _check_args(codes, coords, (torch.uint8,))
-    c = codes.shape[-1]
-    for name, x in (("scale", scale), ("offset", offset)):
-        if x.shape != (c,) or x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 [{c}], got "
-                            f"{x.dtype} {tuple(x.shape)}")
-        if x.device != codes.device or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {codes.device}")
-    if _check_device(codes, coords, scale, offset):
+    if _check(codes, coords, (torch.uint8,), dequant=(scale, offset)):
         return gather_bilinear_border_u8_ref(codes, coords, scale, offset)
-    v, fh, fw, _ = codes.shape
-    p = coords.shape[1]
-    out = torch.empty((v, p, c), dtype=torch.bfloat16, device=codes.device)
-    return _launch("gather_bilinear_border_u8", "u8",
-                   (codes.data_ptr(), coords.data_ptr(), scale.data_ptr(),
-                    offset.data_ptr()), out, (v, p, fh, fw, c))
+    return _launch(codes, coords, None, (scale, offset), _MAP_PIXELS, 0, 0)
+
+
+def gather_feature_map(feats: torch.Tensor, points: torch.Tensor,
+                       mask: torch.Tensor, h: int, w: int,
+                       dequant=None) -> torch.Tensor:
+    """The render's gather in one launch. feats [v, fh, fw, c] (f32 or
+    bf16; u8 with ``dequant`` = (scale, offset), each [c] f32); points
+    [v, p, 2] f32 (x, y) in the (h, w) frame, converted to map pixels
+    with align_corners iff the map is (h, w); mask [v, p] f32 -> [v, p, c]
+    samples times the mask, in feats' dtype (u8: bf16). CUDA tensors go
+    through the kernel, CPU tensors through ``gather_feature_map_ref``."""
+    dtypes = ((torch.float32, torch.bfloat16) if dequant is None
+              else (torch.uint8,))
+    if _check(feats, points, dtypes, mask, dequant):
+        return gather_feature_map_ref(feats, points, mask, h, w, dequant)
+    fh, fw = feats.shape[1:3]
+    frame = _ALIGN_CORNERS if (fh == h and fw == w) else _HALF_PIXEL
+    return _launch(feats, points, mask, dequant, frame, h, w)

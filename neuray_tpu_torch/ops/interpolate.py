@@ -3,11 +3,12 @@ plain versions only).
 
 ``grid_sample_nhwc`` is the oracle: written with plain tensor indexing,
 never ``F.grid_sample``. The render path samples with border padding
-through ``interpolate_feature_map``, which converts the coordinates to
-feature-map pixels and hands them to ``ops.gather.gather_bilinear_border``
-(the CUDA kernel on a CUDA tensor, its plain twin on a CPU tensor), or
-for a u8 map to ``gather_bilinear_border_u8``. ``quantize_u8`` and
-``image_to_u8`` make the u8 maps.
+through ``interpolate_feature_map``, which is ``ops.gather.
+gather_feature_map``: on CUDA tensors one launch of the gather kernel
+converts the points to feature-map pixels, samples (an f32, bf16 or u8
+map) and applies the mask; on CPU tensors its plain twin composes
+``feature_pixel_coords``, the plain gather and the mask. ``quantize_u8``
+and ``image_to_u8`` make the u8 maps.
 
 Maps are channels-last [n, h, w, c], points are (x, y) pixel coords.
 """
@@ -16,24 +17,7 @@ from __future__ import annotations
 import torch
 
 from neuray_tpu_torch.ops.gather import (
-    gather_bilinear_border, gather_bilinear_border_u8)
-
-
-def feature_pixel_coords(points: torch.Tensor, h: int, w: int, fh: int,
-                         fw: int, align_corners: bool) -> torch.Tensor:
-    """Map (x, y) pixel coords of an (h, w) frame to pixel coords of an
-    (fh, fw) feature map through the reference's normalize ->
-    grid_sample-unnormalize round trip, with the same arithmetic as
-    ``grid_sample_nhwc``. points [..., 2] -> [..., 2] f32 contiguous."""
-    x_norm = points[..., 0] / (w - 1.0) * 2.0 - 1.0
-    y_norm = points[..., 1] / (h - 1.0) * 2.0 - 1.0
-    if align_corners:
-        ix = (x_norm + 1.0) / 2.0 * (fw - 1.0)
-        iy = (y_norm + 1.0) / 2.0 * (fh - 1.0)
-    else:
-        ix = ((x_norm + 1.0) * fw - 1.0) / 2.0
-        iy = ((y_norm + 1.0) * fh - 1.0) / 2.0
-    return torch.stack([ix, iy], dim=-1)
+    feature_pixel_coords, gather_feature_map)
 
 
 def grid_sample_nhwc(feats: torch.Tensor, points: torch.Tensor,
@@ -94,18 +78,11 @@ def interpolate_feature_map(feats, coords, mask, h: int, w: int,
     align_corners=True iff the map is at full (h, w) resolution. The mask
     is applied in the output's dtype.
 
-    feats [n, fh, fw, c]; coords [n, pn, 2]; mask [n, pn] -> [n, pn, c].
-    dequant: (scale, offset), each [c] f32, for a u8 map; the output is
-    then bf16 ``sample * scale - offset``.
+    feats [n, fh, fw, c]; coords [n, pn, 2] f32; mask [n, pn] f32 ->
+    [n, pn, c]. dequant: (scale, offset), each [c] f32, for a u8 map; the
+    output is then bf16 ``sample * scale - offset``.
     """
-    fh, fw = feats.shape[1:3]
-    align = (fh == h and fw == w)
-    pix = feature_pixel_coords(coords, h, w, fh, fw, align)
-    if dequant is None:
-        out = gather_bilinear_border(feats, pix)
-    else:
-        out = gather_bilinear_border_u8(feats, pix, *dequant)
-    return out * mask[..., None].to(out.dtype)
+    return gather_feature_map(feats, coords, mask, h, w, dequant)
 
 
 def quantize_u8(feats: torch.Tensor):

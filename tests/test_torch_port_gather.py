@@ -1,0 +1,302 @@
+"""The port's gather entries (``neuray_tpu_torch/ops/gather.py``): the
+fused render entry's plain version against the JAX package's
+``interpolate_feature_map``, the wrapper's checks and routes, and the
+byte count behind the kernel's bound; on a card, every kernel path
+against its plain version.
+
+Tolerances: f32 1e-4 against JAX. bf16 by the rule of
+``tests/test_torch_port_bf16.py`` (``held``): the port's bf16 error
+against JAX f32 within 1.5x of JAX bf16's own, in mean and max; JAX's
+bf16 gather returns f32 (its weights promote), so its result is rounded
+to bf16, the dtype the bf16 route carries. u8: the dequantized JAX
+gather of the codes within one bf16 ulp.
+"""
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from neuray_tpu_torch.ops import gather as GA
+from neuray_tpu_torch.ops import interpolate as I
+
+torch.set_num_threads(1)
+
+BF = torch.bfloat16
+H, W = 32, 40
+
+
+@pytest.fixture
+def jI():
+    """The JAX package's interpolate module. Imported here, not at the top:
+    the card's machine has no jax, and runs this file's ``cuda`` tests
+    alone (``--noconftest``, README)."""
+    pytest.importorskip("jax")
+    from neuray_tpu.ops import interpolate
+    return interpolate
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the GPU machine")
+    return torch.device("cuda")
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def inputs(scale, c=16, seed=1):
+    """A map at 1/scale of the (H, W) frame, 500 points a view with a
+    margin outside the frame, a mask with zeros."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(3, H // scale, W // scale, c).astype(np.float32)
+    pts = (rng.rand(3, 500, 2) * [W + 8, H + 8] - 4).astype(np.float32)
+    pts[:, :4] = [[0, 0], [W - 1, H - 1], [0, H - 1], [W - 1, 0]]
+    mask = (rng.rand(3, 500) > 0.3).astype(np.float32)
+    return feats, pts, mask
+
+
+def fused(feats, pts, mask, dequant=None):
+    """The fused entry on CPU tensors: its plain version, no launch."""
+    before = GA.LAUNCHES
+    out = I.interpolate_feature_map(feats, t(pts), t(mask), H, W, dequant)
+    assert GA.LAUNCHES == before
+    ref = GA.gather_feature_map_ref(feats, t(pts), t(mask), H, W, dequant)
+    assert torch.equal(out, ref)
+    return out
+
+
+# ---------------- the fused entry's plain version against JAX ----------------
+
+@pytest.mark.parametrize("scale", [1, 4], ids=["align", "half-pixel"])
+def test_fused_f32_equals_jax(jI, scale):
+    feats, pts, mask = inputs(scale)
+    out = fused(t(feats), pts, mask)
+    want = np.asarray(jI.interpolate_feature_map(feats, pts, mask, H, W))
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert (out.numpy()[mask == 0] == 0).all()
+
+
+@pytest.mark.parametrize("scale", [1, 4], ids=["align", "half-pixel"])
+def test_fused_bf16_held_to_jax(jI, scale):
+    import jax.numpy as jnp
+    feats, pts, mask = inputs(scale)
+    out = fused(t(feats).to(BF), pts, mask)
+    assert out.dtype == BF
+    port = out.float().numpy()
+    f32 = np.asarray(jI.interpolate_feature_map(feats, pts, mask, H, W))
+    bf16 = np.asarray(jI.interpolate_feature_map(
+        jnp.asarray(feats, jnp.bfloat16), pts, mask, H, W).astype(
+            jnp.bfloat16), np.float32)
+    own, ours, d = np.abs(bf16 - f32), np.abs(port - f32), np.abs(port - bf16)
+    assert ours.mean() <= 1.5 * own.mean() and ours.max() <= 1.5 * own.max()
+    assert d.mean() <= 2 * own.mean() and d.max() <= 2 * own.max()
+
+
+@pytest.mark.parametrize("scale", [1, 4], ids=["align", "half-pixel"])
+def test_fused_u8_equals_jax_dequantized(jI, scale):
+    _, pts, mask = inputs(scale)
+    rng = np.random.RandomState(2)
+    codes = rng.randint(0, 256, (3, H // scale, W // scale, 16)).astype(
+        np.uint8)
+    scale_ = (rng.rand(16) / 127).astype(np.float32)
+    offset = scale_ * np.float32(128)
+    out = fused(t(codes), pts, mask, (t(scale_), t(offset)))
+    assert out.dtype == BF
+    lerp = np.asarray(jI.interpolate_feature_map(
+        codes.astype(np.float32), pts, np.ones_like(mask), H, W))
+    want = (lerp * scale_ - offset) * mask[..., None]
+    np.testing.assert_allclose(out.float().numpy(), want, rtol=2.0 ** -8,
+                               atol=1e-6)
+
+
+def test_feature_pixel_coords_divides_exactly():
+    """The conversion divides in IEEE f32 (the kernel's prologue and the
+    JAX package do), not by a rounded reciprocal."""
+    x = torch.arange(0, 800, dtype=torch.float32)
+    pix = GA.feature_pixel_coords(torch.stack([x, x], -1), 800, 800, 800,
+                                  800, True)
+    want = (x.double() / 799.0).float() * 2.0 - 1.0
+    want = (want + 1.0) / 2.0 * 799.0
+    assert torch.equal(pix[:, 0], want)
+
+
+# ---------------- the wrapper's checks and routes ----------------
+
+def offset_view(shape, dtype, nbytes):
+    """A contiguous map ``nbytes`` past a 16-byte boundary (a view with a
+    storage offset)."""
+    n = int(np.prod(shape))
+    extra = 16 // torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(n + extra, dtype=dtype)
+    skip = nbytes // flat.element_size()
+    assert flat.data_ptr() % 16 == 0
+    view = flat[skip:skip + n].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == nbytes
+    return view
+
+
+@pytest.mark.parametrize("dtype,c,misaligned,route", [
+    (torch.float32, 64, 0, (4, True)), (BF, 64, 0, (8, True)),
+    (torch.uint8, 64, 0, (16, True)), (torch.float32, 4, 0, (4, True)),
+    (torch.float32, 3, 0, (1, False)), (BF, 4, 0, (4, True)),
+    (torch.uint8, 3, 0, (1, False)), (torch.float32, 5, 0, (1, False)),
+    (BF, 67, 0, (1, False)), (torch.float32, 64, 8, (2, True)),
+    (torch.float32, 64, 4, (1, False)), (torch.float32, 4, 4, (1, False)),
+    (torch.uint8, 16, 8, (8, True)), (torch.uint8, 4, 0, (1, False))])
+def test_route(dtype, c, misaligned, route):
+    assert GA._route(offset_view((2, 3, 5, c), dtype, misaligned)) == route
+
+
+@pytest.mark.parametrize("c", [3, 4, 5, 64])
+def test_wrapper_takes_misaligned_views_and_empty_points(c):
+    rng = np.random.RandomState(c)
+    feats = offset_view((2, 5, 7, c), torch.float32, 4)
+    feats.copy_(t(rng.rand(2, 5, 7, c).astype(np.float32)))
+    coords = t((rng.rand(2, 30, 2) * [9, 7] - 1).astype(np.float32))
+    assert torch.equal(GA.gather_bilinear_border(feats, coords),
+                       GA.gather_bilinear_border_ref(feats.clone(), coords))
+    empty = GA.gather_bilinear_border(feats, torch.zeros(2, 0, 2))
+    assert empty.shape == (2, 0, c)
+    pts, mask = torch.zeros(2, 0, 2), torch.zeros(2, 0)
+    assert GA.gather_feature_map(feats, pts, mask, 20, 28).shape == (2, 0, c)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    feats, coords = torch.zeros(2, 4, 4, 8), torch.zeros(2, 5, 2)
+    mask = torch.ones(2, 5)
+    scale = torch.ones(8)
+    bad = [
+        (feats, coords, mask[:, :4], None),                # mask shape
+        (feats, coords, mask.bool(), None),                # mask dtype
+        (feats, coords, torch.ones(5, 2).t(), None),       # not contiguous
+        (feats, coords, mask, (scale, scale)),             # dequant, f32 map
+        (feats.to(torch.uint8), coords, mask, None),       # u8, no dequant
+        (feats.to(torch.uint8), coords, mask, (scale, scale[:4])),
+        (feats.double(), coords, mask, None),
+    ]
+    for f, c, m, dq in bad:
+        with pytest.raises((ValueError, TypeError)):
+            GA.gather_feature_map(f, c, m, 16, 16, dq)
+    with pytest.raises(ValueError):                        # grid y
+        GA.gather_bilinear_border(torch.zeros(65536, 2, 2, 1),
+                                  torch.zeros(65536, 1, 2))
+
+
+# ---------------- the bound's byte count ----------------
+
+def brute_force_pixels(coords, fh, fw):
+    """Distinct tap pixels, one point at a time, in float64."""
+    total = 0
+    for view in coords.astype(np.float64):
+        seen = set()
+        for x, y in view:
+            x = min(max(x, 0.0), fw - 1.0)
+            y = min(max(y, 0.0), fh - 1.0)
+            x0, y0 = int(min(np.floor(x), fw - 2)), int(min(np.floor(y), fh - 2))
+            seen |= {(y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)}
+        total += len(seen)
+    return total
+
+
+@pytest.mark.parametrize("v,fh,fw,p", [(1, 2, 2, 5), (2, 5, 7, 40),
+                                       (3, 16, 9, 200), (2, 30, 30, 12)])
+def test_touched_pixels_is_the_distinct_tap_count(v, fh, fw, p):
+    rng = np.random.RandomState(fh * fw + p)
+    coords = (rng.rand(v, p, 2) * [fw + 4, fh + 4] - 2).astype(np.float32)
+    assert GA.touched_pixels(t(coords), fh, fw) == brute_force_pixels(
+        coords, fh, fw)
+
+
+@pytest.mark.parametrize("dtype,masked", [(torch.float32, False),
+                                          (BF, True), (torch.uint8, True)])
+def test_gather_bound_counts_each_byte_once(dtype, masked):
+    rng = np.random.RandomState(5)
+    feats = torch.zeros(2, 6, 9, 12, dtype=dtype)
+    pix = t((rng.rand(2, 50, 2) * [11, 8] - 1).astype(np.float32))
+    nbytes, touched, bound_ms, by = chip_smoke.gather_bound(
+        GA, feats, pix, masked)
+    size = feats.element_size()
+    out = 2 if dtype == torch.uint8 else size
+    assert touched == brute_force_pixels(pix.numpy(), 6, 9)
+    assert nbytes == (touched * 12 * size + 2 * 50 * 8 + 2 * 50 * 12 * out
+                      + (2 * 50 * 4 if masked else 0)
+                      + (2 * 12 * 4 if dtype == torch.uint8 else 0))
+    assert by == "bytes"
+    assert bound_ms == pytest.approx(1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S)
+
+
+# ---------------- on the card: every kernel path ----------------
+
+def _map(g, dev, dtype, shape, misalign_bytes=0):
+    """A random map of ``shape`` (u8: codes), ``misalign_bytes`` past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    skip = misalign_bytes // size
+    if dtype == torch.uint8:
+        flat = torch.randint(0, 256, (n + 16,), generator=g, device=dev,
+                             dtype=dtype)
+    else:
+        flat = torch.rand(n + 16, generator=g, device=dev).to(dtype)
+    return flat[skip:skip + n].view(shape)
+
+
+def _hold(out, ref, dtype):
+    """f32 1e-5 (FMA contraction); bf16 and u8 one bf16 ulp of values in
+    [0, 1) or of the output."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -8,
+                                   atol=2.0 ** -8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 16, 64, 67])
+def test_kernel_paths_match_plain_on_cuda(cuda_device, c):
+    """Each instantiation at c channels, on an aligned map and one 4 bytes
+    off a 16-byte boundary, at a point count no block size divides."""
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    p = 1001
+    coords = torch.rand((3, p, 2), generator=g, device=cuda_device)
+    coords = coords * torch.tensor([19.0, 15.0], device=cuda_device) - 3
+    scale = torch.rand(c, generator=g, device=cuda_device) / 127
+    dq = (scale, scale * 128)
+    for dtype in (torch.float32, BF, torch.uint8):
+        for misalign in (0, 4):
+            feats = _map(g, cuda_device, dtype, (3, 9, 13, c), misalign)
+            before = GA.LAUNCHES
+            if dtype == torch.uint8:
+                out = GA.gather_bilinear_border_u8(feats, coords, *dq)
+                ref = GA.gather_bilinear_border_u8_ref(feats, coords, *dq)
+            else:
+                out = GA.gather_bilinear_border(feats, coords)
+                ref = GA.gather_bilinear_border_ref(feats, coords)
+            torch.cuda.synchronize()
+            assert GA.LAUNCHES == before + 1
+            if dtype == torch.uint8:
+                assert torch.equal(out, ref), (c, misalign)
+            else:
+                _hold(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 4], ids=["align", "half-pixel"])
+def test_fused_entry_matches_plain_on_cuda(cuda_device, scale):
+    g = torch.Generator(device=cuda_device).manual_seed(scale)
+    h, w, p = 48, 64, 3333
+    pts = torch.rand((4, p, 2), generator=g, device=cuda_device)
+    pts = pts * torch.tensor([w + 10.0, h + 10.0], device=cuda_device) - 5
+    mask = (torch.rand((4, p), generator=g, device=cuda_device) > 0.3).float()
+    for c in (3, 64):
+        sc = torch.rand(c, generator=g, device=cuda_device) / 127
+        for dtype in (torch.float32, BF, torch.uint8):
+            feats = _map(g, cuda_device, dtype, (4, h // scale, w // scale, c))
+            dq = (sc, sc * 128) if dtype == torch.uint8 else None
+            out = GA.gather_feature_map(feats, pts, mask, h, w, dq)
+            ref = GA.gather_feature_map_ref(feats, pts, mask, h, w, dq)
+            torch.cuda.synchronize()
+            _hold(out, ref, dtype)
+            assert (out.float()[mask == 0] == 0).all()
