@@ -47,6 +47,20 @@
 // The u8 instantiation lerps the codes and dequantizes (code * scale -
 // offset) with every f32 op rounded on its own (__fmul_rn, __fsub_rn), so
 // it equals its plain PyTorch version bit for bit.
+//
+// The backward (gather_border_f32_backward): the gradient of the f32 map,
+// a scatter-add. The JAX package leaves it to XLA, as the transpose of its
+// gather (jax.vjp of neuray_tpu/ops/interpolate.py:115). Each (view,
+// point) adds grad_out * mask * w_tap to the four taps it read, with the
+// forward's prologue (locate), so the taps and weights are the forward's
+// bit for bit, and every product rounded on its own, as the plain version
+// (ops/gather.py: gather_bilinear_border_backward_ref) forms it. The same
+// lane groups read grad_out in 16-byte loads and add with sm_90's 16-byte
+// vector atomics (red.global.add.v4.f32) into the zeroed map. Bound by
+// bytes in principle (grad_out once, the touched map pixels once); the
+// atomics sum in another order on every run, and where many points share
+// a tap (a training chunk lands ~17 taps on each touched pixel) they queue
+// in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -324,6 +338,73 @@ __global__ void __launch_bounds__(kThreads) gather_lanes(const Args a) {
   }
 }
 
+// N values added to p: one 16-byte (N = 4) or 8-byte (N = 2) vector
+// atomic, else N scalar ones
+template <int N>
+__device__ __forceinline__ void add_tap(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (N == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) atomicAdd(p + i, v[i]);
+  }
+}
+
+// The backward of gather_lanes<float, N, VEC> (a.map and a.out unused):
+// the same blocks, lanes and points; each lane reads N channels of its
+// points' grad_out and adds them, weighted, to the four taps.
+template <int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    scatter_lanes(const Args a, const float* __restrict__ grad_out,
+                  float* __restrict__ grad_map) {
+  const int lanes = a.c / N;
+  const int slots = blockDim.y;
+  const int per_block = slots * kPoints;
+  const int64_t first = (int64_t)blockIdx.y * a.p;
+  const int64_t map_view = (int64_t)blockIdx.y * a.fh * a.fw * a.c;
+  const int64_t row = (int64_t)a.fw * a.c;
+  const bool masked = a.mask != nullptr;
+  for (int k = threadIdx.x; k < lanes; k += blockDim.x) {
+    const int ch = k * N;
+    for (int base = blockIdx.x * per_block; base < a.p;
+         base += gridDim.x * per_block) {
+      Point pts[kPoints];
+      Tap<float, N, VEC> g[kPoints];
+#pragma unroll
+      for (int j = 0; j < kPoints; ++j) {
+        const int q = min(base + (int)threadIdx.y + j * slots, a.p - 1);
+        pts[j] = locate(a, map_view, first + q);
+        g[j].load(grad_out + (first + q) * a.c + ch);
+      }
+#pragma unroll
+      for (int j = 0; j < kPoints; ++j) {
+        const int q = base + (int)threadIdx.y + j * slots;
+        if (q >= a.p) continue;
+        const float tx = pts[j].tx, ty = pts[j].ty;
+        float t00[N], t01[N], t10[N], t11[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float gm = masked ? __fmul_rn(g[j][i], pts[j].m) : g[j][i];
+          const float top = __fmul_rn(gm, 1.0f - ty);
+          const float bot = __fmul_rn(gm, ty);
+          t00[i] = __fmul_rn(top, 1.0f - tx);
+          t01[i] = __fmul_rn(top, tx);
+          t10[i] = __fmul_rn(bot, 1.0f - tx);
+          t11[i] = __fmul_rn(bot, tx);
+        }
+        float* t = grad_map + pts[j].tap + ch;
+        add_tap<N>(t, t00);
+        add_tap<N>(t + a.c, t01);
+        add_tap<N>(t + row, t10);
+        add_tap<N>(t + row + a.c, t11);
+      }
+    }
+  }
+}
+
 int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -334,22 +415,47 @@ int sm_count() {
   return n;
 }
 
-template <typename T, int N, bool VEC>
-int run(const Args& a, int v, cudaStream_t stream) {
-  static int resident = 0;  // blocks of kThreads an SM holds
+// The launch shape of a lane kernel (N channels a lane) over v views:
+// as many blocks as fit resident, shared by the views. resident: blocks
+// of kThreads an SM holds, queried once per kernel.
+template <typename K>
+int launch_shape(K kernel, int& resident, const Args& a, int v, int N,
+                 dim3& grid, dim3& block) {
   if (resident == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, gather_lanes<T, N, VEC>, kThreads, 0);
+        &resident, kernel, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
   }
   const int lanes = std::min(a.c / N, 32);
-  const dim3 block(lanes, kThreads / lanes);
+  block = dim3(lanes, kThreads / lanes);
   const int per_block = (int)block.y * kPoints;
   const int64_t need = ((int64_t)a.p + per_block - 1) / per_block;
   const int64_t fit =
       std::max<int64_t>(1, (int64_t)resident * sm_count() / v);
-  const dim3 grid((unsigned)std::min(need, fit), (unsigned)v);
+  grid = dim3((unsigned)std::min(need, fit), (unsigned)v);
+  return 0;
+}
+
+template <typename T, int N, bool VEC>
+int run(const Args& a, int v, cudaStream_t stream) {
+  static int resident = 0;
+  dim3 grid, block;
+  const int e =
+      launch_shape(gather_lanes<T, N, VEC>, resident, a, v, N, grid, block);
+  if (e != 0) return e;
   gather_lanes<T, N, VEC><<<grid, block, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int N, bool VEC>
+int run_backward(const Args& a, int v, const float* grad_out, float* grad_map,
+                 cudaStream_t stream) {
+  static int resident = 0;
+  dim3 grid, block;
+  const int e =
+      launch_shape(scatter_lanes<N, VEC>, resident, a, v, N, grid, block);
+  if (e != 0) return e;
+  scatter_lanes<N, VEC><<<grid, block, 0, stream>>>(a, grad_out, grad_map);
   return (int)cudaGetLastError();
 }
 
@@ -370,12 +476,9 @@ int dispatch(const Args& a, int v, int n, int vec, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int entry(const void* map, const void* coords, const void* mask,
-          const void* scale, const void* offset, void* out, int v, int p,
-          int fh, int fw, int c, int frame, int h, int w, int n, int vec,
-          void* stream) {
-  if (v == 0 || p == 0 || c == 0) return 0;
+Args make_args(const void* map, const void* coords, const void* mask,
+               const void* scale, const void* offset, void* out, int p,
+               int fh, int fw, int c, int frame, int h, int w) {
   Args a;
   a.map = map;
   a.coords = static_cast<const float*>(coords);
@@ -393,7 +496,42 @@ int entry(const void* map, const void* coords, const void* mask,
   a.rh = 1.0f / a.hm1;
   a.rw = 1.0f / a.wm1;
   a.xy_vec = ((uintptr_t)coords & 7) == 0;
+  return a;
+}
+
+template <typename T>
+int entry(const void* map, const void* coords, const void* mask,
+          const void* scale, const void* offset, void* out, int v, int p,
+          int fh, int fw, int c, int frame, int h, int w, int n, int vec,
+          void* stream) {
+  if (v == 0 || p == 0 || c == 0) return 0;
+  const Args a = make_args(map, coords, mask, scale, offset, out, p, fh, fw,
+                           c, frame, h, w);
   return dispatch<T>(a, v, n, vec, (cudaStream_t)stream);
+}
+
+// The backward's route, checked as dispatch checks the forward's: n
+// channels a lane, as 8- or 16-byte vectors of grad_out and grad_map
+// (both aligned to them), else one channel a lane.
+int backward_entry(const void* grad_out, const void* coords, const void* mask,
+                   void* grad_map, int v, int p, int fh, int fw, int c,
+                   int frame, int h, int w, int n, int vec, void* stream) {
+  if (v == 0 || p == 0 || c == 0) return 0;
+  const Args a = make_args(nullptr, coords, mask, nullptr, nullptr, nullptr,
+                           p, fh, fw, c, frame, h, w);
+  const float* g = static_cast<const float*>(grad_out);
+  float* m = static_cast<float*>(grad_map);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    const int bytes = n * 4;
+    if ((bytes != 8 && bytes != 16) || c % n != 0 ||
+        ((uintptr_t)g & (bytes - 1)) != 0 || ((uintptr_t)m & (bytes - 1)) != 0)
+      return (int)cudaErrorInvalidValue;
+    if (n == 4) return run_backward<4, true>(a, v, g, m, s);
+    return run_backward<2, true>(a, v, g, m, s);
+  }
+  if (n == 1) return run_backward<1, false>(a, v, g, m, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -418,3 +556,17 @@ int entry(const void* map, const void* coords, const void* mask,
 GATHER_ENTRY(gather_border_f32, float)
 GATHER_ENTRY(gather_border_bf16, __nv_bfloat16)
 GATHER_ENTRY(gather_border_u8, uint8_t)
+
+// The f32 map's gradient: grad_map [v, fh, fw, c] f32, zeroed by the
+// caller, gets grad_out [v, p, c] f32 times mask [v, p] (or 1 when null)
+// times each tap's weight added at the four taps of each point; coords,
+// frame, h, w as for the forward; n, vec: the route (backward_entry).
+// Launches on ``stream`` and returns cudaGetLastError() of the launch.
+extern "C" int gather_border_f32_backward(const void* grad_out,
+                                          const void* coords, const void* mask,
+                                          void* grad_map, int v, int p, int fh,
+                                          int fw, int c, int frame, int h,
+                                          int w, int n, int vec, void* stream) {
+  return backward_entry(grad_out, coords, mask, grad_map, v, p, fh, fw, c,
+                        frame, h, w, n, vec, stream);
+}

@@ -61,6 +61,11 @@ class MixtureLogisticsDistDecoder(nn.Module):
                 self.var_decoder(feats).float(), vis,
                 self.aw_decoder(feats).float())
 
+    def predict_mean(self, feats: torch.Tensor) -> torch.Tensor:
+        """The mean head alone (the depth-loss head): feats [..., 32] ->
+        mean [..., 2] in the compute dtype."""
+        return self.mean_decoder(feats)
+
     def compute_prob(self, depth, interval, mean, var, vis, aw, is_ref,
                      depth_range):
         return mixture.compute_prob(depth, interval, mean, var, vis, aw,

@@ -11,6 +11,12 @@ visibility mixture, aggregates across views and composites; then the
 same again at importance-resampled fine depths. ``render_full`` runs
 the encode and the chunk loop under ``torch.inference_mode()``.
 
+``NeurayRenderer.forward`` is the training forward on one ray chunk,
+with autograd (the encode included): the fine sampler reads the CDF at
+random draws from a ``torch.Generator`` and sorts them, the outputs carry
+``pixel_colors_gt``, and ``depth_loss_coords`` adds the depth-loss head.
+Gradients reach the gather maps through the backward kernel.
+
 ``use_bf16`` runs the convs and dense layers in bf16 (parameters stay
 f32; their bf16 copies are cast once, ``blocks.ComputeCast``) and
 gathers from a bf16 map and image; with ``gather_quant="u8"`` the map
@@ -59,7 +65,7 @@ from neuray_tpu_torch.ops import sampling as S
 from neuray_tpu_torch.ops.compositing import (
     alpha_values2hit_prob, composite_colors)
 from neuray_tpu_torch.ops.interpolate import (
-    image_to_u8, interpolate_feature_map, quantize_u8)
+    grid_sample_nhwc, image_to_u8, interpolate_feature_map, quantize_u8)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -128,11 +134,12 @@ class RenderConfig:
 
 
 # values the port runs; anything else raises until its slice lands
+# (``use_depth_loss`` changes no render: the depth-loss head runs where the
+# trainer passes depth_loss_coords, as in the JAX package)
 _SUPPORTED = {
     "vis_encoder_type": "default", "dist_decoder_type": "mixture_logistics",
     "agg_net_type": "default", "init_net_type": "depth",
     "use_dr_prediction": False, "use_self_hit_prob": False,
-    "use_depth_loss": False,
 }
 
 
@@ -295,6 +302,9 @@ class NeurayRenderer(nn.Module):
             prj, que_dir, is_fine, pos)
         outputs = {"pixel_colors_nr": pixel_colors_nr,
                    "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
+        if que.get("imgs") is not None:
+            outputs["pixel_colors_gt"] = grid_sample_nhwc(
+                que["imgs"], que["coords"], align_corners=True)
         if c.use_ray_mask:
             rm = prj["mask"].sum(dim=0) > c.ray_mask_view_num   # qn,rn,dn,1
             outputs["ray_mask"] = (rm.sum(dim=2) > c.ray_mask_point_num)[..., 0]
@@ -303,14 +313,30 @@ class NeurayRenderer(nn.Module):
         return outputs
 
     def _fine_depth(self, que_depth: torch.Tensor, hit_prob: torch.Tensor,
-                    depth_range: torch.Tensor, fdn: int) -> torch.Tensor:
-        """fdn depths resampled from the coarse hit_prob (eval: monotone,
-        no sort), merged with the coarse ones under fine_depth_use_all."""
-        fine_depth = S.sample_fine_depth(que_depth, hit_prob, depth_range, fdn)
+                    depth_range: torch.Tensor, fdn: int,
+                    u: torch.Tensor | None = None) -> torch.Tensor:
+        """fdn depths resampled from the coarse hit_prob (eval: at
+        stratified u, monotone, no sort; training: at the random ``u``,
+        sorted), merged with the coarse ones under fine_depth_use_all."""
+        fine_depth = S.sample_fine_depth(que_depth, hit_prob, depth_range, fdn,
+                                         u)
         if self.cfg.fine_depth_use_all:
             fine_depth = torch.sort(
                 torch.cat([que_depth, fine_depth], dim=-1), dim=-1).values
+        elif u is not None:
+            fine_depth = torch.sort(fine_depth, dim=-1).values
         return fine_depth
+
+    @staticmethod
+    def draw_fine_u(shape, device: torch.device,
+                    generator: torch.Generator | None) -> torch.Tensor:
+        """The fine sampler's training draws, uniform in [0, 1), made on
+        the generator's device (the default generator's: the CPU) and
+        moved to ``device``: a CPU generator gives the same draws to a
+        run on the card and one on the CPU."""
+        gen_device = generator.device if generator is not None else "cpu"
+        return torch.rand(shape, generator=generator,
+                          device=gen_device).to(device)
 
     @staticmethod
     def _add_fine(outputs: Tensors, fine_out: Tensors) -> Tensors:
@@ -318,18 +344,25 @@ class NeurayRenderer(nn.Module):
             outputs[k + "_fine"] = v
         return outputs
 
-    def render_chunk(self, ref: Tensors, que: Tensors) -> Tensors:
-        """Coarse + (optionally) fine render of one ray chunk (eval:
-        deterministic depths and fixed-u fine resampling)."""
+    def render_chunk(self, ref: Tensors, que: Tensors, is_train: bool = False,
+                     generator: torch.Generator | None = None) -> Tensors:
+        """Coarse + (optionally) fine render of one ray chunk. The coarse
+        depths are deterministic in both modes (as in the JAX trainer);
+        the fine ones are resampled from the detached coarse hit_prob at
+        fixed u (eval) or at u drawn from ``generator`` and sorted
+        (``is_train``)."""
         c = self.cfg
         qn, rn, _ = que["coords"].shape
         que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
                                       c.depth_sample_num)
         outputs = self._render_by_depth(que_depth, que, ref, False)
         if c.use_hierarchical_sampling:
+            u = (self.draw_fine_u((qn, rn, c.fine_depth_sample_num),
+                                  que_depth.device, generator)
+                 if is_train else None)
             fine_depth = self._fine_depth(
-                que_depth, outputs["hit_prob_nr"], que["depth_range"],
-                c.fine_depth_sample_num)
+                que_depth, outputs["hit_prob_nr"].detach(),
+                que["depth_range"], c.fine_depth_sample_num, u)
             self._add_fine(outputs, self._render_by_depth(
                 fine_depth, que, ref, True))
         return outputs
@@ -348,6 +381,50 @@ class NeurayRenderer(nn.Module):
                                       c.fine_depth_sample_num)
         return self._add_fine({}, self._render_by_depth(
             fine_depth, que, ref, True))
+
+    # ---------------- training ----------------
+
+    def predict_mean_for_depth_loss(self, ray_feats: torch.Tensor,
+                                    coords: torch.Tensor, h: int,
+                                    w: int) -> Tensors:
+        """The depth-loss head: the dist decoders' means at pixels coords
+        [rfn, pn, 2] of the (h, w) reference images, sampled from
+        ray_feats [rfn, fh, fw, f]. Returns ``depth_mean``,
+        ``depth_mean_2`` (and ``_fine`` twins), each [rfn, pn]."""
+        mask = torch.ones(coords.shape[:2], device=coords.device)
+        feats = interpolate_feature_map(ray_feats.contiguous(),
+                                        coords.contiguous(), mask, h, w)
+        mean = self.dist_decoder.predict_mean(feats)
+        outputs = {"depth_mean": mean[..., 0], "depth_mean_2": mean[..., 1]}
+        if self.cfg.use_hierarchical_sampling:
+            mean_fine = self.fine_dist_decoder.predict_mean(feats)
+            outputs["depth_mean_fine"] = mean_fine[..., 0]
+            outputs["depth_mean_fine_2"] = mean_fine[..., 1]
+        return outputs
+
+    def forward(self, ref: Tensors, que: Tensors, is_train: bool = True,
+                depth_loss_coords: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> Tensors:
+        """The training forward on one ray chunk, with autograd: init net
+        -> image and vis encoders -> gather maps -> ``render_chunk`` (fine
+        draws from ``generator``), and with ``depth_loss_coords`` [rfn,
+        pn, 2] the depth-loss head. ``que`` carries ``imgs`` for
+        ``pixel_colors_gt``. f32 only: the bf16 route's weight copies are
+        detached (``blocks.ComputeCast``)."""
+        if self.cfg.use_bf16 and is_train:
+            raise NotImplementedError("training runs in f32 only "
+                                      "(RenderConfig.use_bf16=True)")
+        ray_feats_raw = self.initialize_ray_feats(ref)
+        img_feats, ray_feats = self.encode_scene(ref, ray_feats_raw)
+        ref_c = self.build_gather_cache(
+            dict(ref, img_feats=img_feats, ray_feats=ray_feats))
+        outputs = self.render_chunk(ref_c, que, is_train, generator)
+        if depth_loss_coords is not None:
+            h, w = ref["imgs"].shape[1:3]
+            outputs.update(self.predict_mean_for_depth_loss(
+                ray_feats, depth_loss_coords, h, w))
+            outputs["depth_coords"] = depth_loss_coords
+        return outputs
 
     def _probe_hit_prob(self, ref: Tensors, que: Tensors):
         """The coarse network pass at ``probe_sample_num`` samples, its

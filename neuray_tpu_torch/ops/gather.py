@@ -17,6 +17,13 @@ not take raises):
   (``interpolate_feature_map``): points of the (h, w) frame converted to
   map pixels as ``feature_pixel_coords`` does, the gather (u8 with a
   dequant) and the projection mask, in one launch.
+An f32 map that requires grad (training) goes through ``_GatherF32``, a
+``torch.autograd.Function`` whose backward is the scatter-add kernel
+(``gather_bilinear_border_backward``, ``gather_feature_map_backward``;
+on CPU tensors their plain twins). Gradients reach the map only: the
+coordinates and the mask are data in training (the fine depths come from
+a detached hit_prob), so a coords or mask tensor that requires grad, or
+a bf16 or u8 map that does, raises.
 The kernels are compiled with nvcc at first use, from the source in this
 repository, into ``build/neuray_tpu_torch/`` keyed by a hash of the
 source, and loaded with ctypes.
@@ -41,11 +48,13 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel launches (never the plain versions'): in all, and by the map's
-# dtype ("f32", "bf16", "u8"); read and reset (``reset_launches``) by
-# chip_smoke.py to prove the render path went through the kernels
+# kernel launches (never the plain versions'): the forward's in all and by
+# the map's dtype ("f32", "bf16", "u8"), the backward's on their own; read
+# and reset (``reset_launches``) by chip_smoke.py to prove the render and
+# training paths went through the kernels
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"f32": 0, "bf16": 0, "u8": 0}
+BACKWARD_LAUNCHES = 0
 
 _NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8"}
 # where the kernel finds a point: the map's own pixels, or a point of the
@@ -55,8 +64,8 @@ _MAX_VIEWS, _MAX_POINTS = 65535, 2 ** 30   # the grid's y; int32 point math
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, BACKWARD_LAUNCHES
+    LAUNCHES = BACKWARD_LAUNCHES = 0
     for k in LAUNCHES_BY_DTYPE:
         LAUNCHES_BY_DTYPE[k] = 0
 
@@ -170,6 +179,43 @@ def gather_feature_map_ref(feats: torch.Tensor, points: torch.Tensor,
     return out * mask[..., None].to(out.dtype)
 
 
+def gather_bilinear_border_backward_ref(grad_out: torch.Tensor,
+                                        coords: torch.Tensor, fh: int,
+                                        fw: int,
+                                        mask: torch.Tensor | None = None
+                                        ) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel, on any device: the
+    gradient of the f32 gather at map-pixel coords [v, p, 2] with respect
+    to its map, given grad_out [v, p, c] f32 and, for the fused entry, the
+    mask [v, p]. Each point adds grad_out * mask * w_tap at its four taps
+    (``index_put_`` with accumulate), the taps and weights from the
+    forward's ``_anchor`` and each product rounded as the kernel rounds
+    it -> [v, fh, fw, c] f32."""
+    v, p, c = grad_out.shape
+    x0, y0, tx, ty = _anchor(coords, fh, fw)
+    tx, ty = tx[..., None], ty[..., None]
+    g = grad_out if mask is None else grad_out * mask[..., None]
+    top, bot = g * (1 - ty), g * ty
+    idx = y0.long() * fw + x0.long()                           # v,p
+    view = torch.arange(v, device=idx.device)[:, None].expand(v, p)
+    grad = torch.zeros((v, fh * fw, c), device=grad_out.device)
+    for offset, part in ((0, top * (1 - tx)), (1, top * tx),
+                         (fw, bot * (1 - tx)), (fw + 1, bot * tx)):
+        grad.index_put_((view, idx + offset), part, accumulate=True)
+    return grad.view(v, fh, fw, c)
+
+
+def gather_feature_map_backward_ref(grad_out: torch.Tensor,
+                                    points: torch.Tensor, mask: torch.Tensor,
+                                    h: int, w: int, fh: int,
+                                    fw: int) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_feature_map_backward``: the
+    points converted as the forward converts them, then
+    ``gather_bilinear_border_backward_ref`` with the mask."""
+    pix = feature_pixel_coords(points, h, w, fh, fw, fh == h and fw == w)
+    return gather_bilinear_border_backward_ref(grad_out, pix, fh, fw, mask)
+
+
 # ---------------- the kernel ----------------
 
 def _nvcc() -> str:
@@ -211,41 +257,44 @@ def load_library() -> dict:
     entries, bound once, by the map's dtype name."""
     lib = ctypes.CDLL(str(build_library()))
     fns = {}
-    for name in _NAMES.values():
+    for name in (*_NAMES.values(), "f32_backward"):
         fn = getattr(lib, f"gather_border_{name}")
-        # map, coords, mask, scale, offset, out; v, p, fh, fw, c, frame,
+        # forward: map, coords, mask, scale, offset, out; backward:
+        # grad_out, coords, mask, grad_map; then v, p, fh, fw, c, frame,
         # h, w, n, vec; stream
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+        pointers = 4 if name == "f32_backward" else 6
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
-def _route(feats: torch.Tensor) -> tuple[int, bool]:
-    """The kernel's path for this map: (elements a lane loads, whether as
-    one vector). 16-byte vectors where a pixel's channels are a whole
-    number of them and the map is aligned to one, else 8-byte vectors
+def _route(*tensors: torch.Tensor) -> tuple[int, bool]:
+    """The kernel's path for the first tensor (the map; the backward's
+    grad_out, with its grad_map): (elements a lane loads, whether as one
+    vector). 16-byte vectors where a pixel's channels are a whole number
+    of them and every tensor is aligned to one, else 8-byte vectors
     likewise, else one lane a channel with scalar loads (chosen by
     ``gather_bench.py --routes``: one thread a point for c = 3 or 4 was
     slower on the render's coords)."""
-    size = feats.element_size()
-    c = feats.shape[-1]
+    size = tensors[0].element_size()
+    c = tensors[0].shape[-1]
     for vec in (16, 8):
-        if (c * size) % vec == 0 and feats.data_ptr() % vec == 0:
+        if (c * size) % vec == 0 and all(t.data_ptr() % vec == 0
+                                         for t in tensors):
             return vec // size, True
     return 1, False
 
 
-def _check(feats: torch.Tensor, coords: torch.Tensor, dtypes,
-           mask: torch.Tensor | None = None, dequant=None) -> bool:
-    """Check every argument once. Returns True for CPU tensors (the plain
-    version), False for CUDA tensors (the kernel); raises on what the
-    kernel does not take."""
-    shape, cshape = feats.shape, coords.shape
-    if len(shape) != 4:
-        raise ValueError(f"feats must be [v, fh, fw, c], got {tuple(shape)}")
-    v, fh, fw, c = shape
+def _check_points(anchor: torch.Tensor, v: int, fh: int, fw: int, c: int,
+                  coords: torch.Tensor, mask: torch.Tensor | None = None,
+                  dequant=None) -> bool:
+    """The checks shared by the forward and the backward entries, for a
+    map [v, fh, fw, c] and the tensor ``anchor`` (the map, or the
+    backward's grad_out) that sets the device. Returns True for CPU
+    tensors (the plain version), False for CUDA tensors (the kernel)."""
+    cshape = coords.shape
     if len(cshape) != 3 or cshape[0] != v or cshape[2] != 2:
         raise ValueError(f"coords must be [{v}, p, 2], got {tuple(cshape)}")
     if fh < 2 or fw < 2:
@@ -253,8 +302,6 @@ def _check(feats: torch.Tensor, coords: torch.Tensor, dtypes,
     if v > _MAX_VIEWS or cshape[1] > _MAX_POINTS:
         raise ValueError(f"at most {_MAX_VIEWS} views of {_MAX_POINTS} "
                          f"points, got {v} of {cshape[1]}")
-    if feats.dtype not in dtypes:
-        raise TypeError(f"feats must be one of {dtypes}, got {feats.dtype}")
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
     others = [coords]
@@ -269,25 +316,68 @@ def _check(feats: torch.Tensor, coords: torch.Tensor, dtypes,
                 raise TypeError(f"{name} must be float32 [{c}], got "
                                 f"{x.dtype} {tuple(x.shape)}")
             others.append(x)
-    cuda, index = feats.is_cuda, feats.get_device()
-    grad = feats.requires_grad
-    contiguous = feats.is_contiguous()
+    cuda, index = anchor.is_cuda, anchor.get_device()
+    contiguous = anchor.is_contiguous()
     for x in others:
         if x.is_cuda != cuda or x.get_device() != index:
-            raise ValueError(f"every tensor must be on {feats.device}")
-        grad = grad or x.requires_grad
+            raise ValueError(f"every tensor must be on {anchor.device}")
+        if x.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("the gather's gradient reaches the map only; "
+                               "coords, mask and dequant must not require "
+                               "grad")
         contiguous = contiguous and x.is_contiguous()
     if not contiguous:
         raise ValueError("every tensor must be contiguous")
-    if not cuda:
-        if feats.device.type != "cpu":
-            raise ValueError(f"no gather for device {feats.device}")
-        return True
-    if grad:
-        raise RuntimeError(
-            "the gather kernel has no backward yet; it comes with training "
-            "support. Run the render under torch.inference_mode().")
-    return False
+    if not cuda and anchor.device.type != "cpu":
+        raise ValueError(f"no gather for device {anchor.device}")
+    return not cuda
+
+
+def _check(feats: torch.Tensor, coords: torch.Tensor, dtypes,
+           mask: torch.Tensor | None = None, dequant=None) -> bool:
+    """Check every argument of a forward entry once. Returns True for CPU
+    tensors (the plain version), False for CUDA tensors (the kernel);
+    raises on what the kernel does not take, and on a map that requires
+    grad unless it is f32."""
+    if feats.dim() != 4:
+        raise ValueError(f"feats must be [v, fh, fw, c], got "
+                         f"{tuple(feats.shape)}")
+    if feats.dtype not in dtypes:
+        raise TypeError(f"feats must be one of {dtypes}, got {feats.dtype}")
+    if _needs_grad(feats) and feats.dtype != torch.float32:
+        raise RuntimeError(f"only an f32 map takes a gradient, got a "
+                           f"{feats.dtype} map that requires grad")
+    return _check_points(feats, *feats.shape, coords, mask, dequant)
+
+
+def _check_backward(grad_out: torch.Tensor, coords: torch.Tensor, fh: int,
+                    fw: int, mask: torch.Tensor | None = None) -> bool:
+    """``_check`` for a backward entry: grad_out [v, p, c] f32."""
+    if grad_out.dim() != 3 or grad_out.shape[:2] != coords.shape[:2]:
+        raise ValueError(f"grad_out must be [v, p, c] over coords "
+                         f"{tuple(coords.shape)}, got {tuple(grad_out.shape)}")
+    if grad_out.dtype != torch.float32:
+        raise TypeError(f"grad_out must be float32, got {grad_out.dtype}")
+    v, _, c = grad_out.shape
+    return _check_points(grad_out, v, fh, fw, c, coords, mask)
+
+
+def _needs_grad(feats: torch.Tensor) -> bool:
+    return feats.requires_grad and torch.is_grad_enabled()
+
+
+def _call(name: str, index: int, args: tuple) -> None:
+    """Call a library entry on device ``index``; raises on a launch
+    error."""
+    fn = load_library()[name]
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"gather_border_{name} launch failed: "
+                           f"cudaError {err}")
 
 
 def _launch(feats: torch.Tensor, coords: torch.Tensor,
@@ -306,21 +396,84 @@ def _launch(feats: torch.Tensor, coords: torch.Tensor,
     scale, offset = (None, None) if dequant is None else (
         dequant[0].data_ptr(), dequant[1].data_ptr())
     index = feats.device.index
-    args = (feats.data_ptr(), coords.data_ptr(),
-            None if mask is None else mask.data_ptr(), scale, offset,
-            out.data_ptr(), v, p, fh, fw, c, frame, h, w, n, vec,
-            torch._C._cuda_getCurrentRawStream(index))
-    fn = load_library()[name]
-    if index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"gather_border_{name} launch failed: "
-                           f"cudaError {err}")
+    _call(name, index, (
+        feats.data_ptr(), coords.data_ptr(),
+        None if mask is None else mask.data_ptr(), scale, offset,
+        out.data_ptr(), v, p, fh, fw, c, frame, h, w, n, vec,
+        torch._C._cuda_getCurrentRawStream(index)))
     _count(name)
     return out
+
+
+def _launch_backward(grad_out: torch.Tensor, coords: torch.Tensor,
+                     mask: torch.Tensor | None, fh: int, fw: int, frame: int,
+                     h: int, w: int) -> torch.Tensor:
+    """Zero the map's gradient and launch the backward kernel into it on
+    the current stream, counted in ``BACKWARD_LAUNCHES``."""
+    global BACKWARD_LAUNCHES
+    v, p, c = grad_out.shape
+    grad_map = torch.zeros((v, fh, fw, c), device=grad_out.device)
+    if grad_out.numel() == 0:
+        return grad_map
+    n, vec = _route(grad_out, grad_map)
+    index = grad_out.device.index
+    _call("f32_backward", index, (
+        grad_out.data_ptr(), coords.data_ptr(),
+        None if mask is None else mask.data_ptr(), grad_map.data_ptr(),
+        v, p, fh, fw, c, frame, h, w, n, vec,
+        torch._C._cuda_getCurrentRawStream(index)))
+    BACKWARD_LAUNCHES += 1
+    return grad_map
+
+
+def _gather(feats: torch.Tensor, coords: torch.Tensor,
+            mask: torch.Tensor | None, h: int | None, w: int | None,
+            dequant, cpu: bool) -> torch.Tensor:
+    """A checked forward entry on either device: the map-pixel entry
+    (h None) or the fused one; the plain version on the CPU, else one
+    launch."""
+    if h is None:
+        if cpu:
+            return (gather_bilinear_border_ref(feats, coords)
+                    if dequant is None
+                    else gather_bilinear_border_u8_ref(feats, coords,
+                                                       *dequant))
+        return _launch(feats, coords, None, dequant, _MAP_PIXELS, 0, 0)
+    if cpu:
+        return gather_feature_map_ref(feats, coords, mask, h, w, dequant)
+    return _launch(feats, coords, mask, dequant,
+                   _frame(*feats.shape[1:3], h, w), h, w)
+
+
+def _frame(fh: int, fw: int, h: int, w: int) -> int:
+    """Where the fused entry's points live: align_corners iff the
+    (fh, fw) map is the (h, w) frame."""
+    return _ALIGN_CORNERS if (fh == h and fw == w) else _HALF_PIXEL
+
+
+class _GatherF32(torch.autograd.Function):
+    """An f32 gather whose map takes a gradient (``_gather``'s entries):
+    forward and backward are one kernel launch each on CUDA tensors, the
+    plain twins on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, feats, coords, mask, h, w):
+        ctx.save_for_backward(coords, mask)
+        ctx.sizes = (h, w, *feats.shape[1:3])
+        return _gather(feats, coords, mask, h, w, None, not feats.is_cuda)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        coords, mask = ctx.saved_tensors
+        h, w, fh, fw = ctx.sizes
+        grad = grad.contiguous()
+        if h is None:
+            grad_map = gather_bilinear_border_backward(grad, coords, fh, fw)
+        else:
+            grad_map = gather_feature_map_backward(grad, coords, mask, h, w,
+                                                   fh, fw)
+        return grad_map, None, None, None, None
 
 
 def gather_bilinear_border(feats: torch.Tensor,
@@ -328,10 +481,12 @@ def gather_bilinear_border(feats: torch.Tensor,
     """feats [v, fh, fw, c] f32 or bf16; coords [v, p, 2] f32 (x, y)
     feature-map pixels -> [v, p, c] border-clamped bilinear samples in
     feats' dtype. CUDA tensors go through the kernel, CPU tensors
-    through ``gather_bilinear_border_ref``."""
-    if _check(feats, coords, (torch.float32, torch.bfloat16)):
-        return gather_bilinear_border_ref(feats, coords)
-    return _launch(feats, coords, None, None, _MAP_PIXELS, 0, 0)
+    through ``gather_bilinear_border_ref``; an f32 map that requires grad
+    through ``_GatherF32``."""
+    cpu = _check(feats, coords, (torch.float32, torch.bfloat16))
+    if _needs_grad(feats):
+        return _GatherF32.apply(feats, coords, None, None, None)
+    return _gather(feats, coords, None, None, None, None, cpu)
 
 
 def gather_bilinear_border_u8(codes: torch.Tensor, coords: torch.Tensor,
@@ -342,9 +497,9 @@ def gather_bilinear_border_u8(codes: torch.Tensor, coords: torch.Tensor,
     sample of the codes, dequantized per channel as
     ``sample * scale - offset``. CUDA tensors go through the kernel, CPU
     tensors through ``gather_bilinear_border_u8_ref``."""
-    if _check(codes, coords, (torch.uint8,), dequant=(scale, offset)):
-        return gather_bilinear_border_u8_ref(codes, coords, scale, offset)
-    return _launch(codes, coords, None, (scale, offset), _MAP_PIXELS, 0, 0)
+    dequant = (scale, offset)
+    cpu = _check(codes, coords, (torch.uint8,), dequant=dequant)
+    return _gather(codes, coords, None, None, None, dequant, cpu)
 
 
 def gather_feature_map(feats: torch.Tensor, points: torch.Tensor,
@@ -355,11 +510,39 @@ def gather_feature_map(feats: torch.Tensor, points: torch.Tensor,
     [v, p, 2] f32 (x, y) in the (h, w) frame, converted to map pixels
     with align_corners iff the map is (h, w); mask [v, p] f32 -> [v, p, c]
     samples times the mask, in feats' dtype (u8: bf16). CUDA tensors go
-    through the kernel, CPU tensors through ``gather_feature_map_ref``."""
+    through the kernel, CPU tensors through ``gather_feature_map_ref``; an
+    f32 map that requires grad through ``_GatherF32``."""
     dtypes = ((torch.float32, torch.bfloat16) if dequant is None
               else (torch.uint8,))
-    if _check(feats, points, dtypes, mask, dequant):
-        return gather_feature_map_ref(feats, points, mask, h, w, dequant)
-    fh, fw = feats.shape[1:3]
-    frame = _ALIGN_CORNERS if (fh == h and fw == w) else _HALF_PIXEL
-    return _launch(feats, points, mask, dequant, frame, h, w)
+    cpu = _check(feats, points, dtypes, mask, dequant)
+    if _needs_grad(feats):
+        return _GatherF32.apply(feats, points, mask, h, w)
+    return _gather(feats, points, mask, h, w, dequant, cpu)
+
+
+def gather_bilinear_border_backward(grad_out: torch.Tensor,
+                                    coords: torch.Tensor, fh: int,
+                                    fw: int) -> torch.Tensor:
+    """The gradient of ``gather_bilinear_border`` with respect to its f32
+    map: grad_out [v, p, c] f32; coords [v, p, 2] f32 map pixels ->
+    [v, fh, fw, c] f32. CUDA tensors: one launch of the backward kernel
+    into a zeroed map; CPU tensors: ``gather_bilinear_border_backward_ref``.
+    """
+    if _check_backward(grad_out, coords, fh, fw):
+        return gather_bilinear_border_backward_ref(grad_out, coords, fh, fw)
+    return _launch_backward(grad_out, coords, None, fh, fw, _MAP_PIXELS, 0, 0)
+
+
+def gather_feature_map_backward(grad_out: torch.Tensor, points: torch.Tensor,
+                                mask: torch.Tensor, h: int, w: int, fh: int,
+                                fw: int) -> torch.Tensor:
+    """The gradient of ``gather_feature_map`` with respect to its f32 map
+    [v, fh, fw, c]: grad_out [v, p, c] f32; points [v, p, 2] f32 in the
+    (h, w) frame; mask [v, p] f32 -> [v, fh, fw, c] f32. CUDA tensors: one
+    launch of the backward kernel into a zeroed map; CPU tensors:
+    ``gather_feature_map_backward_ref``."""
+    if _check_backward(grad_out, points, fh, fw, mask):
+        return gather_feature_map_backward_ref(grad_out, points, mask, h, w,
+                                               fh, fw)
+    return _launch_backward(grad_out, points, mask, fh, fw,
+                            _frame(fh, fw, h, w), h, w)

@@ -1,10 +1,13 @@
 """Depth sampling along rays: coarse uniform-in-inverse-depth ticks and
-the fine inverse-CDF resampling, deterministic (eval) only.
+the fine inverse-CDF resampling (stratified ``u`` in eval, the caller's
+random ``u`` in training).
 
 Port of ``neuray_tpu/ops/sampling.py``. The JAX version builds the CDF
 with a triangular matmul and inverts it with masked min/max reductions
 (TPU workarounds); here ``torch.cumsum`` and
-``torch.searchsorted(right=True)`` do the same job.
+``torch.searchsorted(right=True)`` do the same job. Training draws no
+coarse jitter: the JAX trainer samples coarse depths deterministically
+(``neuray_tpu/models/renderer.py:410-411``).
 """
 from __future__ import annotations
 
@@ -56,11 +59,14 @@ def sample_depth_ranged(near: torch.Tensor, far: torch.Tensor, dn: int):
 
 
 def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
-                      depth_range: torch.Tensor, fdn: int) -> torch.Tensor:
-    """Importance-resample depths from the coarse hit-prob PDF with
-    fixed stratified ``u`` (eval): inverse CDF with right=True
-    searchsorted over midpoint-extended bins, in the inverse-depth
-    domain. The output is monotone, so no sort is needed.
+                      depth_range: torch.Tensor, fdn: int,
+                      u: torch.Tensor | None = None) -> torch.Tensor:
+    """Importance-resample depths from the coarse hit-prob PDF: inverse
+    CDF with right=True searchsorted over midpoint-extended bins, in the
+    inverse-depth domain. With ``u`` None the CDF is read at fixed
+    stratified points (eval) and the output is monotone, so no sort is
+    needed; training passes its random draws ``u`` [qn, rn, fdn] in
+    [0, 1) and sorts the result.
 
     Like the JAX version it normalizes with ``depth_range[0]`` for every
     query view (the two differ only when qn > 1). A bf16 hit_prob keeps
@@ -85,9 +91,10 @@ def sample_fine_depth(depth: torch.Tensor, hit_prob: torch.Tensor,
     cdf = torch.cumsum(pdf.float(), dim=-1).to(pdf.dtype)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # *,dn+1
 
-    interval = 1.0 / fdn
-    u = 0.5 * interval + torch.arange(
-        fdn, dtype=torch.float32, device=cdf.device) * interval
+    if u is None:
+        interval = 1.0 / fdn
+        u = 0.5 * interval + torch.arange(
+            fdn, dtype=torch.float32, device=cdf.device) * interval
     u = u.expand(*cdf.shape[:-1], fdn).contiguous()
 
     # first index with cdf > u; cdf[0] = 0 < u, so ``above`` >= 1

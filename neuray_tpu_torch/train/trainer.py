@@ -1,0 +1,305 @@
+"""Generalization training on one device: a step-based loop with Adam,
+checkpoint and resume, periodic validation, best-model selection and
+txt logs (port of ``neuray_tpu/train/trainer.py``; reference
+train/trainer.py and train/train_valid.py).
+
+What differs from the JAX trainer:
+  * one device (``device``: CUDA unless the caller asks for the CPU);
+    multi-GPU training is not ported yet, so ``n_devices`` > 1 raises;
+  * ``torch.optim.Adam`` with optax's defaults (betas 0.9 / 0.999, eps
+    1e-8), its learning rate set before every update from the schedule at
+    the update count, as optax counts; a parameter without a gradient gets
+    a zero one, so every Adam moment moves as optax's does;
+  * samples come in index order from ``torch.utils.data.DataLoader``
+    (``worker_num`` spawned processes; 0 loads in this process), not from
+    the JAX trainer's Prefetcher;
+  * the fine sampler's draws come from a CPU ``torch.Generator`` seeded
+    with 7, so a run on the card and one on the CPU draw the same u;
+  * checkpoints are ``torch.save`` files (``ckpt.pt``, ``ckpt_best.pt``)
+    of the step, the best metric, the parameters and the optimizer state.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Dict, Iterator
+
+import numpy as np
+import torch
+
+from neuray_tpu_torch.data.train_dataset import name2dataset
+from neuray_tpu_torch.models.renderer import (
+    NeurayRenderer, RenderConfig, render_full)
+from neuray_tpu_torch.train.losses import build_losses
+from neuray_tpu_torch.train.lr import name2lr_manager
+from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
+from neuray_tpu_torch.utils.params import init_like_flax
+
+VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine")
+
+
+class Logger:
+    """Scalars appended to ``<model_dir>/<prefix>.txt``."""
+
+    def __init__(self, model_dir: str):
+        os.makedirs(model_dir, exist_ok=True)
+        self.model_dir = model_dir
+
+    def log(self, data: Dict[str, float], prefix: str, step: int,
+            verbose: bool = False):
+        msg = f"{prefix} step {step} " + " ".join(
+            f"{k} {float(v):.5f}" for k, v in data.items())
+        with open(f"{self.model_dir}/{prefix}.txt", "a") as f:
+            f.write(msg + "\n")
+        if verbose:
+            print(msg, flush=True)
+
+
+def resolve_device(device) -> torch.device:
+    """The training device: the given one, else CUDA. Without a CUDA
+    device and without an explicit ``device="cpu"`` this raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
+class Trainer:
+    default_cfg = {
+        "name": "neuray_tpu_model",
+        "total_step": 400000,
+        "train_log_step": 20,
+        "val_interval": 10000,
+        "save_interval": 500,
+        "lr_type": "exp_decay",
+        "lr_cfg": {"lr_init": 1.0e-4, "decay_step": 100000,
+                   "decay_rate": 0.5},
+        "loss": ["render"],
+        "val_metric": ["psnr_ssim"],
+        "key_metric_name": "psnr_nr",
+        "train_dataset_type": "gen",
+        "train_dataset_cfg": {},
+        "val_set_list": [],
+        "output_root": "data/model",
+        "n_devices": None,
+        "worker_num": 8,
+    }
+
+    def __init__(self, cfg: Dict[str, Any], device=None):
+        self.cfg = {**self.default_cfg, **cfg}
+        if (self.cfg["n_devices"] or 1) > 1:
+            raise NotImplementedError("training on more than one device is "
+                                      "not ported yet")
+        self.device = resolve_device(device)
+        self.model_dir = f'{self.cfg["output_root"]}/{self.cfg["name"]}'
+        self.logger = Logger(self.model_dir)
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            self.renderer = NeurayRenderer(RenderConfig.from_cfg(self.cfg))
+            init_like_flax(self.renderer)
+        self.renderer.to(self.device).train()
+        self.params = list(self.renderer.parameters())
+        self.schedule = name2lr_manager[self.cfg["lr_type"]](
+            self.cfg["lr_cfg"])
+        self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.opt_count = 0       # Adam updates made with this state
+        self.loss_fn = build_losses(self.cfg)
+        self.generator = torch.Generator()
+
+        dataset_type = self.cfg["train_dataset_type"]
+        if dataset_type not in name2dataset:
+            raise NotImplementedError(f"train dataset {dataset_type!r} is "
+                                      "not ported yet")
+        self.train_dataset = name2dataset[dataset_type](
+            self.cfg.get("train_dataset_cfg", {}), True)
+        unknown = set(self.cfg["val_metric"]) - set(name2metrics)
+        if unknown:
+            raise NotImplementedError(f"val metrics {sorted(unknown)} are "
+                                      "not ported yet")
+        self.val_metrics = [name2metrics[m](self.cfg)
+                            for m in self.cfg["val_metric"]]
+        self.key_metric = name2key_metrics[self.cfg["key_metric_name"]]
+        self._val_sets: Dict[str, Any] = {}
+
+    # ---------------- state ----------------
+
+    def _save(self, step: int, best_metric: float, path: str = "ckpt.pt"):
+        torch.save({"step": int(step), "best_metric": float(best_metric),
+                    "params": self.renderer.state_dict(),
+                    "opt_state": self.optimizer.state_dict(),
+                    "opt_count": self.opt_count},
+                   f"{self.model_dir}/{path}")
+
+    def _load(self, path: str = "ckpt.pt"):
+        full = f"{self.model_dir}/{path}"
+        if not os.path.exists(full):
+            return None
+        return torch.load(full, map_location=self.device, weights_only=True)
+
+    def _resume(self, restored) -> tuple[int, float]:
+        self.renderer.load_state_dict(restored["params"])
+        if _restore_opt_state(self.optimizer, restored["opt_state"],
+                              strict=not self.cfg.get("resume_reset_opt",
+                                                      False)):
+            self.opt_count = restored["opt_count"]
+        step = int(restored["step"])
+        print(f"resumed from step {step}", flush=True)
+        return step, float(restored["best_metric"])
+
+    # ---------------- steps ----------------
+
+    def _samples(self, n: int) -> Iterator[Dict[str, Any]]:
+        """n training samples in index order (from 0, wrapping at the
+        dataset's length), made by ``worker_num`` spawned processes, or
+        in this one for 0."""
+        order = [i % len(self.train_dataset) for i in range(n)]
+        workers = self.cfg["worker_num"]
+        if workers == 0:
+            return (self.train_dataset[i] for i in order)
+        return iter(torch.utils.data.DataLoader(
+            self.train_dataset, batch_size=None, sampler=order,
+            num_workers=workers, multiprocessing_context="spawn",
+            pin_memory=self.device.type == "cuda"))
+
+    def to_device(self, sample: Dict[str, Any]) -> Dict[str, Any]:
+        """A sample's arrays as tensors on the training device (the
+        scene name dropped)."""
+        def move(x):
+            if isinstance(x, dict):
+                return {k: move(v) for k, v in x.items()}
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(x)
+            if isinstance(x, torch.Tensor):
+                return x.to(self.device, non_blocking=True)
+            return x
+        return {k: move(v) for k, v in sample.items() if k != "scene_name"}
+
+    def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
+        """One Adam update on one sample (tensors on the device): the
+        training forward, the losses, total = the sum of the means of the
+        ``loss*`` entries, backward, step. Returns each loss's mean and
+        ``loss_total``."""
+        outputs = self.renderer(batch["ref"], batch["que"], True,
+                                batch.get("depth_loss_coords"),
+                                self.generator)
+        losses = self.loss_fn(outputs, batch)
+        means = {k: v.mean() for k, v in losses.items()}
+        total = sum(v for k, v in means.items() if k.startswith("loss"))
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.opt_count)
+        self.optimizer.step()
+        self.opt_count += 1
+        values = torch.stack([*means.values(), total]).tolist()
+        return dict(zip([*means, "loss_total"], values))
+
+    # ---------------- main loop ----------------
+
+    def run(self) -> NeurayRenderer:
+        cfg = self.cfg
+        restored = self._load()
+        step, best_metric = (self._resume(restored) if restored is not None
+                             else (0, -1e9))
+        self.generator.manual_seed(7)
+        train_results: Dict[str, list] = {}
+        t0 = time.time()
+        for sample in self._samples(max(cfg["total_step"] - step, 0)):
+            metrics = self.train_step(self.to_device(sample))
+            step += 1
+            for k, v in metrics.items():
+                train_results.setdefault(k, []).append(v)
+
+            if step % cfg["train_log_step"] == 0:
+                logs = {k: float(np.mean(v))
+                        for k, v in train_results.items()}
+                logs["steps_per_sec"] = cfg["train_log_step"] / (
+                    time.time() - t0)
+                self.logger.log(logs, "train", step, verbose=True)
+                train_results = {}
+                t0 = time.time()
+
+            if step % cfg["val_interval"] == 0 or step == cfg["total_step"]:
+                val_metric = self.validate(step)
+                if val_metric is not None and val_metric > best_metric:
+                    best_metric = val_metric
+                    self._save(step, best_metric, "ckpt_best.pt")
+                t0 = time.time()
+
+            if step % cfg["save_interval"] == 0:
+                self._save(step, best_metric)
+        self._save(step, best_metric)
+        return self.renderer
+
+    # ---------------- validation ----------------
+
+    def validate(self, step: int):
+        """Render every view of each val set with ``render_full``, log its
+        metrics to ``val-<name>.txt`` and return the key metric of the
+        last set (None without val sets)."""
+        key_vals = []
+        for val_set in self.cfg["val_set_list"]:
+            name = val_set["name"]
+            if name not in self._val_sets:
+                self._val_sets[name] = name2dataset[val_set["type"]](
+                    {**val_set.get("cfg", {})}, False)
+            dataset = self._val_sets[name]
+            results: Dict[str, list] = {}
+            t0 = time.time()
+            for i in range(len(dataset)):
+                sample = self.to_device(dataset[i])
+                que = {k: v for k, v in sample["que"].items() if k != "imgs"}
+                outputs = {k: v.cpu().numpy() for k, v in render_full(
+                    self.renderer, sample["ref"], que, VAL_KEEP).items()}
+                imgs = sample["que"]["imgs"]
+                outputs["pixel_colors_gt"] = imgs.reshape(1, -1, 3).cpu(
+                    ).numpy()
+                data_gt = {"que_shape": tuple(imgs.shape[1:3])}
+                for metric in self.val_metrics:
+                    for k, v in metric(outputs, data_gt, step).items():
+                        results.setdefault(k, []).append(v)
+            logs = {k: float(np.mean(np.concatenate(v)))
+                    for k, v in results.items()}
+            logs["eval_time"] = time.time() - t0
+            self.logger.log(logs, f"val-{name}", step, verbose=True)
+            if results:
+                key_vals.append(self.key_metric(
+                    {k: np.concatenate(v) for k, v in results.items()}))
+        return key_vals[-1] if key_vals else None
+
+
+def _restore_opt_state(optimizer: torch.optim.Optimizer,
+                       saved: Dict[str, Any], strict: bool = True) -> bool:
+    """Load a saved ``optimizer.state_dict()`` into ``optimizer``.
+
+    A state whose parameter count or moment shapes differ from the
+    optimizer's parameters (the model changed since the checkpoint) would
+    silently reset or misplace Adam moments. That raises under
+    ``strict``; otherwise the fresh state stays, with a warning. Returns
+    whether the saved state was loaded."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    count = sum(len(g["params"]) for g in saved["param_groups"])
+    state = saved["state"]
+    match = count == len(params) and all(
+        int(i) < len(params) and all(
+            v.shape == params[int(i)].shape for k, v in s.items()
+            if k in ("exp_avg", "exp_avg_sq"))
+        for i, s in state.items())
+    if not match:
+        msg = (f"checkpoint opt_state does not match the current optimizer "
+               f"({count} vs {len(params)} parameters or a moment's shape "
+               f"differs); resuming would reset or misplace Adam moments")
+        if strict:
+            raise ValueError(msg + ". Pass resume_reset_opt=True to accept "
+                             "a fresh optimizer state.")
+        print(f"WARNING: {msg}; using a FRESH optimizer state.", flush=True)
+        return False
+    optimizer.load_state_dict(saved)
+    return True

@@ -1,6 +1,7 @@
 """Weights: the flat-npz format of ``neuray_tpu/utils/params_io.py``
 read with numpy alone, and the bridge from the flax parameter tree to a
-PyTorch ``state_dict``.
+PyTorch ``state_dict`` and back (``torch_to_flax``: port gradients and
+checkpoints as flax trees).
 
 The port names its submodules after the flax tree
 (``image_encoder.layer1.block0.conv1``...), so each leaf maps by one
@@ -72,6 +73,69 @@ def flax_to_torch(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to {key}")
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def torch_to_flax(module: nn.Module,
+                  tensors: Dict[str, torch.Tensor] | None = None
+                  ) -> Dict[str, Any]:
+    """The inverse of ``flax_to_torch`` for ``module``: tensors keyed as
+    its parameters (default: the parameters themselves; or, say, their
+    gradients) -> ``{"params": tree}`` of f32 numpy arrays in the flax
+    layout. The owning submodule gives each leaf's kind: a conv weight
+    becomes ``kernel`` [kh, kw, in, out], a ``ReflectConv``'s leaves go
+    under ``Conv_0``, a Linear weight becomes ``kernel`` [in, out], any
+    other ``weight`` (a norm's) ``scale``."""
+    from neuray_tpu_torch.models.blocks import ReflectConv
+    tree: Dict[str, Any] = {}
+    for mod_name, mod in module.named_modules():
+        for leaf, param in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            arr = (param if tensors is None else tensors[key])
+            arr = arr.detach().cpu().float().numpy()
+            path = mod_name.split(".") if mod_name else []
+            if isinstance(mod, nn.Conv2d):
+                if leaf == "weight":
+                    leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+                if isinstance(mod, ReflectConv):
+                    path.append("Conv_0")
+            elif leaf == "weight":
+                leaf, arr = (("kernel", arr.T) if isinstance(mod, nn.Linear)
+                             else ("scale", arr))
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+def init_like_flax(module: nn.Module) -> None:
+    """Re-draw ``module``'s parameters, in place from torch's default
+    generator, from the distributions the JAX package's flax modules
+    initialize them with: every conv and dense kernel from a normal
+    truncated at two deviations with variance scale / fan_in (flax's
+    ``variance_scaling`` "truncated_normal"), scale 2 (``he_normal``) in
+    the aggregation net's dense chains and 1 (``lecun_normal``, flax's
+    default) elsewhere; biases 0, norm scales 1. (PyTorch's own defaults
+    draw biases too and leave the fine aggregation net's ReLU density
+    dead at init on the synthetic scene.)"""
+    from neuray_tpu_torch.models.ibrnet import _Seq, _SplitSeq
+    he = {id(m) for seq in module.modules() if isinstance(seq, (_Seq,
+                                                                _SplitSeq))
+          for m in seq.modules()}
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                std = np.sqrt((2.0 if id(mod) in he else 1.0) / fan_in
+                              ) / 0.87962566103423978
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif hasattr(mod, "weight") and isinstance(mod.weight,
+                                                       nn.Parameter):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
 
 
 def load_flax_params(module: nn.Module, tree: Dict[str, Any]) -> None:

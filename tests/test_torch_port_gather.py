@@ -1,8 +1,9 @@
 """The port's gather entries (``neuray_tpu_torch/ops/gather.py``): the
 fused render entry's plain version against the JAX package's
-``interpolate_feature_map``, the wrapper's checks and routes, and the
-byte count behind the kernel's bound; on a card, every kernel path
-against its plain version.
+``interpolate_feature_map``, the backward's plain version against
+autograd and ``jax.vjp``, the wrapper's checks, routes and gradient
+rules, and the byte count behind the kernel's bound; on a card, every
+kernel path (forward and backward) against its plain version.
 
 Tolerances: f32 1e-4 against JAX. bf16 by the rule of
 ``tests/test_torch_port_bf16.py`` (``held``): the port's bf16 error
@@ -120,6 +121,139 @@ def test_feature_pixel_coords_divides_exactly():
     want = (x.double() / 799.0).float() * 2.0 - 1.0
     want = (want + 1.0) / 2.0 * 799.0
     assert torch.equal(pix[:, 0], want)
+
+
+# ---------------- the backward's plain version ----------------
+
+ROUTES = ["map pixels", "align", "half-pixel"]
+
+
+def backward_inputs(route, c=16):
+    """inputs() for the route (map pixels: the points as pixels of the
+    (H, W) map itself) and a grad_out [3, 500, c]."""
+    feats, pts, mask = inputs(4 if route == "half-pixel" else 1, c, seed=3)
+    grad = np.random.RandomState(4).randn(3, 500, c).astype(np.float32)
+    return feats, pts, mask, grad
+
+
+def plain_backward(route, feats, pts, mask, grad):
+    fh, fw = feats.shape[1:3]
+    if route == "map pixels":
+        return GA.gather_bilinear_border_backward_ref(t(grad), t(pts), fh, fw)
+    return GA.gather_feature_map_backward_ref(t(grad), t(pts), t(mask), H, W,
+                                              fh, fw)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_backward_ref_matches_autograd(route):
+    """The scatter-add against torch.autograd through the forward's own
+    lerp (``_lerp_f32``), points outside the map and mask zeros
+    included: 1e-5 (both sum the same products in other orders)."""
+    feats, pts, mask, grad = backward_inputs(route)
+    f = t(feats).requires_grad_()
+    fh, fw = feats.shape[1:3]
+    if route == "map pixels":
+        out = GA._lerp_f32(f, t(pts))
+    else:
+        pix = GA.feature_pixel_coords(t(pts), H, W, fh, fw, route == "align")
+        out = GA._lerp_f32(f, pix) * t(mask)[..., None]
+    want, = torch.autograd.grad(out, f, t(grad))
+    ours = plain_backward(route, feats, pts, mask, grad)
+    torch.testing.assert_close(ours, want, rtol=1e-5, atol=1e-5)
+    assert ours.abs().max() > 0
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_backward_ref_matches_jax_vjp(jI, route):
+    """Against jax.vjp of the JAX package's gathers (what XLA transposes
+    in the JAX trainer): ``interpolate_feature_map`` on the frame routes,
+    ``grid_sample_nhwc`` (border, align_corners) at map pixels. 1e-5."""
+    import jax
+    feats, pts, mask, grad = backward_inputs(route)
+    if route == "map pixels":
+        def fn(f):
+            return jI.grid_sample_nhwc(f, pts, padding_mode="border",
+                                       align_corners=True)
+    else:
+        def fn(f):
+            return jI.interpolate_feature_map(f, pts, mask, H, W)
+    _, vjp = jax.vjp(fn, feats)
+    want, = vjp(grad)
+    ours = plain_backward(route, feats, pts, mask, grad)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_autograd_function_on_cpu(route):
+    """An f32 map that requires grad goes through ``_GatherF32`` on the CPU
+    too: its plain forward, and the plain scatter-add as its backward;
+    nothing is counted as a launch."""
+    feats, pts, mask, grad = backward_inputs(route)
+    f = t(feats).requires_grad_()
+    before = (GA.LAUNCHES, GA.BACKWARD_LAUNCHES)
+    if route == "map pixels":
+        out = GA.gather_bilinear_border(f, t(pts))
+        assert torch.equal(out, GA.gather_bilinear_border_ref(t(feats),
+                                                              t(pts)))
+    else:
+        out = GA.gather_feature_map(f, t(pts), t(mask), H, W)
+        assert torch.equal(out, GA.gather_feature_map_ref(
+            t(feats), t(pts), t(mask), H, W))
+    assert type(out.grad_fn).__name__ == "_GatherF32Backward"
+    out.backward(t(grad))
+    assert torch.equal(f.grad, plain_backward(route, feats, pts, mask, grad))
+    assert (GA.LAUNCHES, GA.BACKWARD_LAUNCHES) == before
+
+
+def test_gradient_rules():
+    """Gradients reach the map only: coords, a mask or a dequant that
+    requires grad raises, and so does a bf16 map; outside grad mode a
+    tensor's requires_grad does not matter."""
+    feats, coords = torch.rand(2, 4, 4, 8), torch.rand(2, 5, 2) * 3
+    mask, scale = torch.ones(2, 5), torch.ones(8)
+    codes = torch.zeros(2, 4, 4, 8, dtype=torch.uint8)
+    g = torch.ones(2, 5, 8)
+    calls = [
+        lambda: GA.gather_feature_map(feats, coords.requires_grad_(), mask,
+                                      16, 16),
+        lambda: GA.gather_feature_map(feats, coords, mask.requires_grad_(),
+                                      16, 16),
+        lambda: GA.gather_bilinear_border(feats.to(BF).requires_grad_(),
+                                          coords),
+        lambda: GA.gather_feature_map(feats.to(BF).requires_grad_(), coords,
+                                      mask, 16, 16),
+        lambda: GA.gather_bilinear_border_u8(codes, coords, scale,
+                                             scale.requires_grad_()),
+        lambda: GA.gather_bilinear_border(feats, coords.requires_grad_()),
+        lambda: GA.gather_feature_map_backward(g, coords.requires_grad_(),
+                                               mask, 16, 16, 4, 4),
+    ]
+    for call in calls:
+        coords.requires_grad_(False), mask.requires_grad_(False)
+        scale.requires_grad_(False)
+        with pytest.raises(RuntimeError, match="grad"):
+            call()
+        with torch.no_grad():
+            call()
+    with pytest.raises(TypeError):
+        GA.gather_bilinear_border_backward(g.double(), coords, 4, 4)
+    with pytest.raises(ValueError):
+        GA.gather_bilinear_border_backward(g[:, :4], coords, 4, 4)
+    out = GA.gather_bilinear_border_backward(torch.zeros(2, 0, 8),
+                                             torch.zeros(2, 0, 2), 4, 4)
+    assert out.shape == (2, 4, 4, 8) and not out.any()
+
+
+@pytest.mark.parametrize("c,misaligned,route", [
+    (64, 0, (4, True)), (32, 0, (4, True)), (6, 0, (2, True)),
+    (3, 0, (1, False)), (64, 4, (1, False)), (64, 8, (2, True))])
+def test_backward_route(c, misaligned, route):
+    """The backward's lanes take 16-byte vectors of grad_out and of the
+    zeroed gradient where c and both alignments allow, else 8, else one
+    channel a lane."""
+    grad_out = offset_view((2, 7, c), torch.float32, misaligned)
+    assert GA._route(grad_out, torch.zeros(2, 3, 5, c)) == route
 
 
 # ---------------- the wrapper's checks and routes ----------------
@@ -300,3 +434,60 @@ def test_fused_entry_matches_plain_on_cuda(cuda_device, scale):
             torch.cuda.synchronize()
             _hold(out, ref, dtype)
             assert (out.float()[mask == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 32, 64])
+def test_backward_kernel_matches_plain_on_cuda(cuda_device, c):
+    """The scatter-add kernel on each route (map pixels; the fused entry,
+    align_corners and half-pixel, with mask zeros), 16-byte aligned and
+    4 bytes off, at a point count no block divides: each element within
+    1e-5 relative and 1e-6 of the largest absolute (the atomics add in
+    another order on every run); one launch each, counted on its own."""
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    h, w, p = 48, 64, 3333
+    for scale, fused in ((1, False), (1, True), (4, True)):
+        fh, fw = h // scale, w // scale
+        pts = torch.rand((4, p, 2), generator=g, device=cuda_device)
+        pts = pts * torch.tensor([w + 10.0, h + 10.0], device=cuda_device) - 5
+        mask = (torch.rand((4, p), generator=g, device=cuda_device)
+                > 0.3).float()
+        for misalign in (0, 4):
+            grad = _map(g, cuda_device, torch.float32, (4, p, c), misalign)
+            before, fwd = GA.BACKWARD_LAUNCHES, GA.LAUNCHES
+            if fused:
+                args = (grad, pts, mask, h, w, fh, fw)
+                out = GA.gather_feature_map_backward(*args)
+                ref = GA.gather_feature_map_backward_ref(*args)
+            else:
+                out = GA.gather_bilinear_border_backward(grad, pts, fh, fw)
+                ref = GA.gather_bilinear_border_backward_ref(grad, pts, fh,
+                                                             fw)
+            torch.cuda.synchronize()
+            assert (GA.BACKWARD_LAUNCHES, GA.LAUNCHES) == (before + 1, fwd)
+            torch.testing.assert_close(out, ref, rtol=1e-5,
+                                       atol=1e-6 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_on_cuda(cuda_device):
+    """A CUDA f32 map that requires grad: one forward and one backward
+    launch, and the map's gradient equals the CPU's plain one."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    h, w, p = 48, 64, 2000
+    pts = torch.rand((4, p, 2), generator=g, device=cuda_device) * 60 - 5
+    mask = (torch.rand((4, p), generator=g, device=cuda_device) > 0.3).float()
+    feats = torch.rand((4, h // 4, w // 4, 64), generator=g,
+                       device=cuda_device)
+    weight = torch.randn((4, p, 64), generator=g, device=cuda_device)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        f = feats.detach().to(dev).requires_grad_()
+        fwd, bwd = GA.LAUNCHES, GA.BACKWARD_LAUNCHES
+        out = GA.gather_feature_map(f, pts.to(dev), mask.to(dev), h, w)
+        (out * weight.to(dev)).sum().backward()
+        launched = (GA.LAUNCHES - fwd, GA.BACKWARD_LAUNCHES - bwd)
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+        grads.append(f.grad.cpu())
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
+                               atol=1e-6 * grads[1].abs().max().item())

@@ -156,7 +156,7 @@ def test_cpu_render_never_launches_the_kernel(inputs):
 
 @pytest.mark.parametrize("field,value", [
     ("use_dr_prediction", True), ("use_self_hit_prob", True),
-    ("init_net_type", "cost_volume"), ("use_depth_loss", True)])
+    ("init_net_type", "cost_volume")])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match=field):
         R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
@@ -164,7 +164,7 @@ def test_unported_config_raises(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("init_diff_scale", 2), ("fine_depth_use_all", True),
-    ("use_bf16", True), ("gather_quant", "u8")])
+    ("use_bf16", True), ("gather_quant", "u8"), ("use_depth_loss", True)])
 def test_ported_config_builds(field, value):
     renderer = R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
     assert getattr(renderer.cfg, field) == value
@@ -185,3 +185,38 @@ def test_u8_without_bf16_renders_f32(inputs, torch_out):
     assert out.keys() == torch_out.keys()
     for k, v in out.items():
         np.testing.assert_array_equal(v, torch_out[k], err_msg=k)
+
+
+def test_exact_profile_config_builds_and_renders(inputs):
+    """``configs/gen/neuray_gen_depth.yaml`` (the main path's config, which
+    sets use_depth_loss) builds in the port and is the exact profile that
+    ``chip_smoke.py`` renders on the card (``EXACT_PROFILE``, in 1024-ray
+    chunks) and that ``test_render_full_matches_jax`` holds to JAX at 8 +
+    8 samples; here it renders 64 + 64 samples on 64 rays through the
+    image centre (in one 64-ray chunk: the file's 8192 would pad them),
+    as the profile's fields without use_depth_loss do."""
+    import dataclasses
+    from neuray_tpu.utils.config import load_cfg
+    import chip_smoke
+    cfg = R.RenderConfig.from_cfg(load_cfg(str(
+        WEIGHTS.parents[1] / "configs" / "gen" / "neuray_gen_depth.yaml")))
+    assert cfg == R.RenderConfig(**{**chip_smoke.EXACT_PROFILE,
+                                    "ray_batch_num": 8192})
+    assert cfg.use_depth_loss and cfg.depth_sample_num == 64
+    ref, que, params = inputs
+    ref = {k: torch.from_numpy(v) for k, v in ref.items()}
+    que = {k: torch.from_numpy(v) for k, v in que.items()}
+    que["coords"] = que["coords"][:, 480:544]
+    outs = []
+    R.NeurayRenderer(cfg)
+    for c in (dataclasses.replace(cfg, ray_batch_num=64),
+              dataclasses.replace(cfg, use_depth_loss=False,
+                                  ray_batch_num=32)):
+        renderer = R.NeurayRenderer(c)
+        load_flax_params(renderer, params)
+        outs.append(_numpy(R.render_full(renderer.eval(), ref, que)))
+    for k, v in outs[0].items():
+        assert np.isfinite(v).all(), k
+        np.testing.assert_allclose(v, outs[1][k], rtol=0, atol=1e-6,
+                                   err_msg=k)
+    assert np.abs(outs[0]["pixel_colors_nr_fine"]).max() > 0.1
