@@ -50,13 +50,22 @@ Phases, one line each, any failure raising (exit code != 0):
      init, at the gen dataset's training shapes (``TRAIN_CUTS``), every
      gather's backward through the hand-written kernel; then one step's
      gradients on the card against the CPU's.
+  9. per-scene finetuning (``ft_phase``): the fields of
+     ``configs/train/ft/neuray_ft_depth_lego.yaml`` (``FT_PROFILE``, its
+     gen model ``GEN_PROFILE`` with the trained weights as checkpoint)
+     through ``FtTrainer(cfg).run()`` on a NeRF-synthetic sphere
+     fabricated at 800x800 (``FT_CUTS``): ray_feats [100, 200, 200, 32]
+     from the gen init net, 33 steps of 512 rays with the self-hit
+     consistency path, every gather and its backward through the kernels,
+     a validation over the 6 val views; then one step's gradients,
+     ray_feats included, on the card against the CPU's.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
-f32 map) to its plain twin at the training step's shapes
+f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``.
 The line before the last is a JSON record of the kernel's instantiations
 (time, bound and grid_sample's time at each one's 64-channel per-chunk
-gather, ``KEY_ROWS``; the backward at the training step's 64-channel
-gather);
+gather, ``KEY_ROWS``; the backward at generalization training's
+64-channel gather);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing anything.
 """
@@ -138,6 +147,56 @@ TRAIN_CUTS = dict(
     val_set_list=[{"name": "sphere", "type": "synthetic",
                    "cfg": {"rfn": TRAIN_RFN, "h": TRAIN_H, "w": TRAIN_W,
                            "num": 1}}])
+
+# phase 9: configs/train/ft/neuray_ft_depth_lego.yaml, every field but those
+# FT_CUTS replaces, its gen_cfg the parsed configs/gen/neuray_gen_depth.yaml
+# (GEN_PROFILE; the card's machine has no yaml; tests/
+# test_torch_port_ft_trainer.py holds both to the parsed files): the gen
+# model's weights and depth-init ray_feats, 512 rays a step from 8 of the
+# 16 nearest views, 64 + 64 samples, no vis, render + consistency loss
+# with the fine render loss, self-hit, Adam with exp decay from 1e-4
+GEN_PROFILE = dict(
+    name="neuray_gen_depth", network="neuray_gen", init_net_type="depth",
+    use_hierarchical_sampling=True, use_depth_loss=True,
+    dist_decoder_cfg={"use_vis": False}, ray_batch_num=8192,
+    loss=["render", "depth"], val_metric=["psnr_ssim", "vis_img"],
+    key_metric_name="psnr_nr_fine", use_dr_loss=False,
+    use_dr_fine_loss=False, use_nr_fine_loss=True, total_step=400000,
+    val_interval=10000, lr_type="exp_decay",
+    lr_cfg={"lr_init": 0.0002, "decay_step": 100000, "decay_rate": 0.5},
+    train_dataset_type="gen",
+    train_dataset_cfg={"resolution_type": "hr", "type2sample_weights": {
+        "gso": 80, "dtu_train": 20, "real_iconic": 10, "space": 20,
+        "real_estate": 40}, "aug_pixel_center_sample": True},
+    val_set_list=[
+        {"name": "llff_fern", "type": "gen",
+         "cfg": {"val_database_name": "llff_colmap/fern/high"}},
+        {"name": "nerf_lego", "type": "gen",
+         "cfg": {"val_database_name": "nerf_synthetic/lego/black_800"}}])
+FT_PROFILE = dict(
+    name="neuray_ft_depth_lego", network="neuray_ft",
+    use_hierarchical_sampling=True, dist_decoder_cfg={"use_vis": False},
+    gen_cfg=GEN_PROFILE, database_split="val_all", train_ray_num=512,
+    use_self_hit_prob=True, loss=["render", "consist"],
+    key_metric_name="psnr_nr_fine", use_nr_fine_loss=True,
+    save_interval=5000,
+    lr_cfg={"lr_init": 0.0001, "decay_step": 100000, "decay_rate": 0.5})
+# what phase 9 changes in the finetuning config: the fabricated sphere
+# (100 train views at 800x800 with analytic depth maps, the 6 val views)
+# in place of lego, which is not in the repository; 3 + 30 steps; no
+# validation of the initial state and one of the 6 val views at the end;
+# psnr_ssim without the vis_img dumps
+FT_STEPS = WARMUP_STEPS + TIMED_STEPS
+FT_CUTS = dict(database_name="nerf_synthetic/sphere/black_800",
+               total_step=FT_STEPS, val_interval=FT_STEPS,
+               validate_initialization=False, val_metric=["psnr_ssim"],
+               train_log_step=10)
+FT_TRAIN_VIEWS = 100
+# the card-vs-CPU gradient check's reduced scene: 8 train views at 128x128,
+# 256 query rays, all through the sphere (foreground_ratio 1)
+FT_GRAD_SCENE = {"n_train": 8, "size": 128}
+FT_GRAD_CHECK = dict(train_ray_num=256, foreground_ratio=1.0,
+                     neighbor_view_num=4, init_view_num=4)
 
 
 def log(*args):
@@ -241,20 +300,22 @@ def grid_sample_fn(feats, pix):
 
 
 F32, BF16, U8 = torch.float32, torch.bfloat16, torch.uint8
-# phase 3: (what, map h, map w, channels, points per view, instantiations,
-# also the fused render entry); the frame is (H, W), RFN views
+# phase 3: (what, views, map h, map w, channels, points per view,
+# instantiations, also the fused render entry); the frame is (H, W)
 KERNEL_SHAPES = [
-    ("feats 1/4 res, per chunk", H // 4, W // 4, 64, CHUNK * DN,
+    ("feats 1/4 res, per chunk", RFN, H // 4, W // 4, 64, CHUNK * DN,
      (F32, BF16), True),
-    ("rgb full res, per chunk", H, W, 3, CHUNK * DN, (F32, BF16), True),
-    ("feats 1/4 res, per focused chunk", H // 4, W // 4, 64,
+    ("rgb full res, per chunk", RFN, H, W, 3, CHUNK * DN, (F32, BF16), True),
+    ("feats 1/4 res, per focused chunk", RFN, H // 4, W // 4, 64,
      CHUNK * BENCH_PROFILE["focus_sample_num"], (F32, BF16, U8), True),
-    ("rgb full res, per focused chunk", H, W, 3,
+    ("rgb full res, per focused chunk", RFN, H, W, 3,
      CHUNK * BENCH_PROFILE["focus_sample_num"], (F32, BF16, U8), True),
-    ("diff [depth|rgb], per encode", H, W, 4, RFN * H * W, (F32, BF16),
+    ("diff [depth|rgb], per encode", RFN, H, W, 4, RFN * H * W, (F32, BF16),
      False),
-    ("diff [depth|rgb], per half-grid encode", H // 2, W // 2, 4,
-     RFN * (H // 2) * (W // 2), (F32, BF16), False)]
+    ("diff [depth|rgb], per half-grid encode", RFN, H // 2, W // 2, 4,
+     RFN * (H // 2) * (W // 2), (F32, BF16), False),
+    ("self-hit ray_feats 1/4 res, per finetuning pass", 1, H // 4, W // 4,
+     32, FT_PROFILE["train_ray_num"], (F32,), True)]
 # each instantiation's row in the kernels line: its 64-channel per-chunk
 # gather on the main path (u8 serves the focused passes)
 KEY_ROWS = {"f32": "feats 1/4 res, per chunk",
@@ -294,8 +355,7 @@ def check_kernel(GA, dev):
     kernels-line stats})."""
     g = torch.Generator(device=dev).manual_seed(0)
     rows, stats = [], {}
-    for what, fh, fw, c, p, dtypes, fused in KERNEL_SHAPES:
-        v = RFN
+    for what, v, fh, fw, c, p, dtypes, fused in KERNEL_SHAPES:
         base = torch.rand((v, fh, fw, c), generator=g, device=dev)
         pix = random_coords(g, dev, v, p, fh, fw)
         points = random_coords(g, dev, v, p, H, W)
@@ -355,13 +415,21 @@ def check_kernel(GA, dev):
     return rows, stats
 
 
-# phase 3, the backward: (what, map h, map w, channels, points per view,
-# entries) at the training step's shapes; the frame is (TRAIN_H, TRAIN_W)
+# phase 3, the backward: (what, views, map h, map w, channels, points per
+# view, entries, the frame of the fused entry's points, its mask random (or
+# ones), also a training sample's real coords) at the training steps'
+# shapes: generalization training's (phase 8) and finetuning's (phase 9)
 BACKWARD_SHAPES = [
-    ("feats 1/4 res, per training pass", TRAIN_H // 4, TRAIN_W // 4, 64,
-     TRAIN_RAYS * DN, ("map pixels", "fused")),
-    ("ray_feats 1/4 res, per depth-loss head", TRAIN_H // 4, TRAIN_W // 4,
-     32, TRAIN_DEPTH_COORDS, ("fused",))]
+    ("feats 1/4 res, per training pass", TRAIN_RFN, TRAIN_H // 4,
+     TRAIN_W // 4, 64, TRAIN_RAYS * DN, ("map pixels", "fused"),
+     (TRAIN_H, TRAIN_W), True, True),
+    ("ray_feats 1/4 res, per depth-loss head", TRAIN_RFN, TRAIN_H // 4,
+     TRAIN_W // 4, 32, TRAIN_DEPTH_COORDS, ("fused",), (TRAIN_H, TRAIN_W),
+     False, False),
+    ("feats 1/4 res, per finetuning pass", RFN, H // 4, W // 4, 64,
+     FT_PROFILE["train_ray_num"] * DN, ("fused",), (H, W), True, False),
+    ("self-hit ray_feats 1/4 res, per finetuning pass", 1, H // 4, W // 4,
+     32, FT_PROFILE["train_ray_num"], ("fused",), (H, W), False, False)]
 BACKWARD_KEY = ("feats 1/4 res, per training pass", "fused")
 
 
@@ -432,24 +500,23 @@ def hold_backward(out, ref):
 
 
 def check_backward(GA, dev):
-    """Phase 3, the backward kernel at the training step's shapes: random
-    coords (5% outside the map) and, for the 64-channel pass, the real
-    coords of a training sample's coarse pass. Returns the kernels-line
-    stats of ``BACKWARD_KEY``'s row."""
+    """Phase 3, the backward kernel at the training steps' shapes: random
+    coords (5% outside the map) and, for generalization training's
+    64-channel pass, the real coords of a training sample's coarse pass.
+    Returns the kernels-line stats of ``BACKWARD_KEY``'s row."""
     g = torch.Generator(device=dev).manual_seed(1)
     stats = {"max_abs_err": 0.0}
-    real = real_training_points(dev)
-    for what, fh, fw, c, p, entries in BACKWARD_SHAPES:
-        v = TRAIN_RFN
+    for (what, v, fh, fw, c, p, entries, (h, w), random_mask,
+         real) in BACKWARD_SHAPES:
         grad_out = torch.randn((v, p, c), generator=g, device=dev)
-        points = random_coords(g, dev, v, p, TRAIN_H, TRAIN_W)
+        points = random_coords(g, dev, v, p, h, w)
         mask = ((torch.rand((v, p), generator=g, device=dev) > 0.3).float()
-                if c == 64 else torch.ones((v, p), device=dev))
+                if random_mask else torch.ones((v, p), device=dev))
         jobs = [("map pixels", random_coords(g, dev, v, p, fh, fw), None)
                 if e == "map pixels" else ("fused", points, mask)
                 for e in entries]
-        if c == 64:
-            jobs.append(("fused, real coords", *real))
+        if real:
+            jobs.append(("fused, real coords", *real_training_points(dev)))
         for entry, at, m in jobs:
             if m is None:
                 args = (grad_out, at, fh, fw)
@@ -457,12 +524,11 @@ def check_backward(GA, dev):
                 plain = GA.gather_bilinear_border_backward_ref
                 pix, size, align = at, (fh, fw), True
             else:
-                args = (grad_out, at, m, TRAIN_H, TRAIN_W, fh, fw)
+                args = (grad_out, at, m, h, w, fh, fw)
                 fn = GA.gather_feature_map_backward
                 plain = GA.gather_feature_map_backward_ref
-                pix = GA.feature_pixel_coords(at, TRAIN_H, TRAIN_W, fh, fw,
-                                              False)
-                size, align = (TRAIN_H, TRAIN_W), False
+                pix = GA.feature_pixel_coords(at, h, w, fh, fw, False)
+                size, align = (h, w), False
             before = GA.BACKWARD_LAUNCHES
             err = hold_backward(fn(*args), plain(*args))
             if GA.BACKWARD_LAUNCHES != before + 1:
@@ -824,7 +890,18 @@ def grad_check(trainer, dev, weights):
                           if p.grad is not None})
     finally:
         N.get_diff_feats = own_diff
-    card, cpu = grads
+    worst = compare_grads(*grads, f"training gradients, card vs CPU "
+                          f"({GRAD_CHECK_DATA}, {DN} + {DN} samples, rays "
+                          "through the sphere)")
+    log(f"training loss, card vs CPU: {totals[0]:.6f} vs {totals[1]:.6f}")
+    return worst
+
+
+def compare_grads(card, cpu, what):
+    """Each parameter's gradient on the card within ``GRAD_BOUND`` of its
+    norm on the CPU plus ``GRAD_FLOOR``; raises otherwise. Returns the
+    worst relative error of a parameter whose gradient is above 1000
+    floors, and its name."""
     if card.keys() != cpu.keys():
         raise RuntimeError("the card and the CPU differ in which parameters "
                            "get a gradient")
@@ -835,30 +912,28 @@ def grad_check(trainer, dev, weights):
     rel = {n: d / g for n, (d, g) in err.items() if g > 1e3 * GRAD_FLOOR}
     worst = max(rel, key=rel.get)
     small = max([d for d, g in err.values() if g <= 1e3 * GRAD_FLOOR] or [0])
-    log(f"training gradients, card vs CPU ({GRAD_CHECK_DATA}, {DN} + {DN} "
-        f"samples, rays through the sphere): {len(err)} parameters, worst "
-        f"relative norm {rel[worst]:.3g} ({worst}), median "
+    log(f"{what}: {len(err)} parameters, worst relative norm "
+        f"{rel[worst]:.3g} ({worst}), median "
         f"{np.median(list(rel.values())):.3g} over the {len(rel)} above "
         f"{1e3 * GRAD_FLOOR:g}; largest difference under the floor "
-        f"{small:.3g}; "
-        f"loss {totals[0]:.6f} vs {totals[1]:.6f}")
+        f"{small:.3g}")
     if bad:
         raise RuntimeError(f"card and CPU gradients differ: {bad}")
     return rel[worst], worst
 
 
-def profile_step(trainer):
-    """One more training step under ``torch.profiler``: kernels, device
-    busy time (the kernels' summed durations) and its share of the step's
-    wall time, and the five kernel names with the most device time."""
+def profile_step(run_step, what="training"):
+    """One more call of ``run_step`` (a training step) under
+    ``torch.profiler``: kernels, device busy time (the kernels' summed
+    durations) and its share of the step's wall time, and the five kernel
+    names with the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    batch = trainer.to_device(trainer.train_dataset[TIMED_STEPS])
-    trainer.train_step(batch)
+    run_step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_step(batch)
+        run_step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -870,7 +945,7 @@ def profile_step(trainer):
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
     busy = sum(sum(v) for v in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
-    log(f"training step profile: {sum(len(v) for v in by_name.values())} "
+    log(f"{what} step profile: {sum(len(v) for v in by_name.values())} "
         f"kernels, device busy {busy:.2f} ms of {1e3 * wall:.2f} ms "
         f"(idle share {1 - busy / (1e3 * wall):.3f}); most device time: "
         + "; ".join(f"{name[:60]} {sum(v) / 1e3:.2f} ms x{len(v)}"
@@ -958,9 +1033,269 @@ def train_phase(GA, dev, root, weights):
         f"psnr_nr_fine {val_psnr:.3f} dB: {' '.join(val[3:])}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
-    profile_step(trainer)
+    batch = trainer.to_device(trainer.train_dataset[TIMED_STEPS])
+    profile_step(lambda: trainer.train_step(batch))
     grad_check(trainer, dev, weights)
     return launches, backward
+
+
+def write_gen_checkpoint(weights, output_root):
+    """The model of ``GEN_PROFILE`` with the trained weights (``weights``:
+    the flax tree), saved in ``Trainer._save``'s format where
+    ``FtRenderer.init_params`` reads it."""
+    from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
+    from neuray_tpu_torch.utils.params import load_flax_params
+    gen = NeurayRenderer(RenderConfig.from_cfg(GEN_PROFILE))
+    load_flax_params(gen, weights)
+    model_dir = Path(output_root) / GEN_PROFILE["name"]
+    model_dir.mkdir(parents=True, exist_ok=True)
+    torch.save({"step": 0, "best_metric": -1e9, "params": gen.state_dict(),
+                "opt_state": torch.optim.Adam(gen.parameters()).state_dict(),
+                "opt_count": 0}, model_dir / "ckpt.pt")
+
+
+# the gathers of one finetuning step, by map (shape, takes a gradient):
+# per pass the 8 reference images, the [ray_feats | img_feats] map and the
+# query's own vis-encoded ray_feats (the self-hit path)
+FT_STEP_GATHERS = {((RFN, H, W, 3), False): 2,
+                   ((RFN, H // 4, W // 4, 64), True): 2,
+                   ((1, H // 4, W // 4, 32), True): 2}
+
+
+def ft_phase(GA, R, dev, work, weights):
+    """Phase 9: ``FtTrainer(cfg).run()`` on the card with the finetuning
+    config's fields (``FT_PROFILE``) and these cuts (``FT_CUTS``): a
+    NeRF-synthetic sphere fabricated under ``work`` (100 train views at
+    800x800 with depth maps, the 6 val views) in place of lego; the gen
+    model (``GEN_PROFILE``) with the trained ``tools/bench_weights.npz``
+    as its checkpoint; 3 warm-up and 30 timed steps; one validation over
+    the 6 val views at the end. Reports the init from the gen model, each
+    step timed on the host clock between synchronizations with its gather
+    launches (6 forward: rgb, the 64-ch map and the self-hit map in each
+    of the two passes; 4 backward: the two maps that take a gradient, in
+    each pass) and its maps (``FT_STEP_GATHERS``), held exactly; the peak
+    memory against a reckoning of the state; the loss; the validation's
+    psnr_nr_fine >= ``PSNR_FLOOR``; that the views a step selected (and
+    only those) changed their ray_feats; one profiled step; and one step's
+    gradients card vs CPU (``ft_grad_check``). Returns the phase's gather
+    launches (forward by instantiation, and backward)."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
+    from neuray_tpu_torch.train.ft_trainer import FtTrainer
+    data_root = work / "ft_data"
+    shutil.rmtree(data_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_nerf_synthetic_sphere(str(data_root), FT_TRAIN_VIEWS, H)
+    t_write = time.perf_counter() - t0
+    cfg = {**FT_PROFILE, **FT_CUTS, "output_root": str(work)}
+    shutil.rmtree(work / cfg["name"], ignore_errors=True)
+    write_gen_checkpoint(weights, work)
+    DB.DATA_ROOT = str(data_root)
+    t0 = time.perf_counter()
+    trainer = FtTrainer(cfg)
+    t_build = time.perf_counter() - t0
+    ft = trainer.ft
+
+    init = {}
+    init_params = ft.init_params
+
+    def timed_init(*args):
+        torch.cuda.synchronize()
+        fwd, t0 = GA.LAUNCHES, time.perf_counter()
+        init_params(*args)
+        torch.cuda.synchronize()
+        init.update(s=time.perf_counter() - t0, launches=GA.LAUNCHES - fwd,
+                    ray_feats=ft.ray_feats.detach().clone())
+
+    steps, counting = [], []
+    train_step = trainer.train_step
+
+    def timed_step(batch):
+        ref_idx, _, que_i = batch
+        torch.cuda.synchronize()
+        fwd, bwd = GA.LAUNCHES, GA.BACKWARD_LAUNCHES
+        counting.append({})
+        t0 = time.perf_counter()
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        steps.append({"s": time.perf_counter() - t0, "loss": out["loss_total"],
+                      "fwd": GA.LAUNCHES - fwd,
+                      "bwd": GA.BACKWARD_LAUNCHES - bwd,
+                      "maps": counting.pop(), "peak":
+                      torch.cuda.max_memory_allocated(),
+                      "views": {int(que_i), *map(int, ref_idx)}})
+        if len(steps) == WARMUP_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    gather = R.interpolate_feature_map
+
+    def counted_gather(feats, *args):
+        if counting:
+            key = (tuple(feats.shape), feats.requires_grad)
+            counting[-1][key] = counting[-1].get(key, 0) + 1
+        return gather(feats, *args)
+
+    views_psnr = []
+    metric = trainer.val_metrics[0]
+
+    def per_view(data_pr, *args, **kwargs):
+        if not all(np.isfinite(v).all() for v in data_pr.values()):
+            raise RuntimeError("finetuning validation render is not finite")
+        out = metric(data_pr, *args, **kwargs)
+        views_psnr.append(float(out["psnr_nr_fine"][0]))
+        return out
+
+    ft.init_params, trainer.train_step = timed_init, timed_step
+    trainer.val_metrics[0] = per_view
+    R.interpolate_feature_map = counted_gather
+    GA.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        R.interpolate_feature_map = gather
+    launches = dict(GA.LAUNCHES_BY_DTYPE)
+    backward = GA.BACKWARD_LAUNCHES
+
+    losses = [s["loss"] for s in steps]
+    if len(steps) != FT_STEPS or not np.isfinite(losses).all():
+        raise RuntimeError(f"finetuning ran {len(steps)} steps, losses "
+                           f"{losses}")
+    bad = [(i, s["fwd"], s["bwd"], s["maps"]) for i, s in enumerate(steps)
+           if (s["fwd"], s["bwd"], s["maps"]) != (6, 4, FT_STEP_GATHERS)]
+    if bad:
+        raise RuntimeError(f"finetuning steps with other gathers than 6 "
+                           f"forward and 4 backward of FT_STEP_GATHERS: {bad}")
+    n_val = len(ft.val_ids)
+    val_chunks = -(-H * W // ft.render_cfg.ray_batch_num)
+    expected = FT_TRAIN_VIEWS + 6 * FT_STEPS + n_val * 4 * val_chunks
+    if (init["launches"], launches["f32"], backward) != (
+            FT_TRAIN_VIEWS, expected, 4 * FT_STEPS):
+        raise RuntimeError(
+            f"finetuning gathers: init {init['launches']}, forward "
+            f"{launches['f32']}, backward {backward}; expected "
+            f"{FT_TRAIN_VIEWS}, {expected}, {4 * FT_STEPS}")
+    if not all(torch.isfinite(p).all() for p in ft.parameters()):
+        raise RuntimeError("finetuned parameters are not finite")
+    touched = sorted(set().union(*(s["views"] for s in steps)))
+    moved = (ft.ray_feats.detach() != init["ray_feats"]).flatten(1).any(1)
+    moved = set(torch.nonzero(moved).flatten().tolist())
+    if moved != set(touched):
+        raise RuntimeError(f"ray_feats changed in views {sorted(moved)}, the "
+                           f"steps selected {touched}")
+
+    timed = np.array([s["s"] for s in steps[WARMUP_STEPS:]])
+    warmup = ", ".join(f"{s['s']:.3f}" for s in steps[:WARMUP_STEPS])
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    n, (fh, fw, c) = len(ft.ref_ids), ft.ray_feats.shape[1:]
+    state_gb = n * fh * fw * c * 4 / 1e9
+    store_gb = sum(v.numel() * v.element_size()
+                   for v in ft.ref_store.values()) / 1e9
+    val = (Path(cfg["output_root"]) / cfg["name"] / "val.txt"
+           ).read_text().split()
+    val_psnr = float(val[val.index("psnr_nr_fine") + 1])
+    log(f"finetuning: scene written in {t_write:.1f} s ({FT_TRAIN_VIEWS} + "
+        f"{n_val} + 1 views {H}x{W}), FtTrainer built in {t_build:.1f} s, "
+        f"ray_feats {list(ft.ray_feats.shape)} from the gen model's init net "
+        f"in {init['s']:.2f} s ({init['launches']} diff gathers)")
+    log(f"finetuning: {FT_STEPS} steps ({WARMUP_STEPS} warm-up) of "
+        f"{cfg['train_ray_num']} rays from {ft.cfg['neighbor_view_num']} of "
+        f"{n} views {H}x{W} + the query's self-hit pass, {DN} + {DN} "
+        f"samples: step median {np.median(timed):.4f} s = "
+        f"{1 / np.median(timed):.2f} steps/s (range {timed.min():.4f}-"
+        f"{timed.max():.4f} s; warm-up steps {warmup}), peak memory "
+        f"{steps[-1]['peak'] / 2**30:.2f} GiB (reckoning before "
+        f"activations: ray_feats {state_gb:.3f} GB, Adam moments "
+        f"{2 * state_gb:.3f} GB, its dense gradient {state_gb:.3f} GB, "
+        f"image store {store_gb:.3f} GB); run {wall:.1f} s with the "
+        f"validation; gather launches a step 6 forward + 4 backward "
+        f"(expected 6 + 4; maps {FT_STEP_GATHERS}), phase {launches} + "
+        f"{backward} backward; ray_feats changed in exactly the "
+        f"{len(touched)} views the steps selected")
+    log(f"finetuning loss: mean of the first 10 steps {first:.5f}, of the "
+        f"last 10 {last:.5f}; validation ({n_val} views {H}x{W}) "
+        f"psnr_nr_fine {val_psnr:.3f} dB (by view "
+        f"{', '.join(f'{v:.3f}' for v in views_psnr)}): {' '.join(val[3:])}")
+    if not val_psnr >= PSNR_FLOOR:
+        raise RuntimeError(f"finetuning validation psnr_nr_fine "
+                           f"{val_psnr:.3f} dB < {PSNR_FLOOR}")
+    que_i, ref_idx = ft.sample_train_indices(np.random.RandomState(0))
+    que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(0))
+    profile_step(lambda: train_step((ref_idx, que, que_i)), "finetuning")
+    ft_grad_check(dev, work, cfg)
+    return launches, backward
+
+
+def ft_grad_check(dev, work, cfg):
+    """One finetuning step's gradients on the card and on the CPU, every
+    parameter ``ray_feats`` included, from the gen model's init (read from
+    the checkpoint ``write_gen_checkpoint`` wrote) on a reduced fabricated
+    scene (``FT_GRAD_SCENE``, ``FT_GRAD_CHECK``) with the same inputs and
+    fine draws (a CPU generator of one seed on both sides), each within
+    ``GRAD_BOUND`` of its norm plus ``GRAD_FLOOR`` (``compare_grads``):
+    with the card's own fine depths, and again with the CPU's. The fine
+    sampler turns the coarse hit_prob's rounding into a far larger move
+    of the fine depths (ROADMAP Queue 3, fault 3), which the second
+    comparison takes out."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
+    from neuray_tpu_torch.models.ft import FtRenderer
+    from neuray_tpu_torch.train.losses import build_losses
+    root = work / "ft_grad_data"
+    shutil.rmtree(root, ignore_errors=True)
+    write_nerf_synthetic_sphere(str(root), **FT_GRAD_SCENE)
+    DB.DATA_ROOT = str(root)
+    cfg = {**cfg, **FT_GRAD_CHECK}
+    cpu = FtRenderer(cfg, "cpu")
+    cpu.init_params()
+    state = cpu.state_dict()
+    card = FtRenderer(cfg, dev)
+    card.set_ray_feats(state["ray_feats"])
+    card.load_state_dict(state)
+    que_i, ref_idx = cpu.sample_train_indices(np.random.RandomState(0))
+
+    def step(ft, fine=None):
+        """One step's loss, gradients and fine depths, the fine depths
+        replaced by ``fine`` where given."""
+        seen, own = [], ft.net._fine_depth
+
+        def fine_depth(*args):
+            d = own(*args) if fine is None else fine[len(seen)].to(dev)
+            seen.append(d.detach().cpu())
+            return d
+
+        ft.net._fine_depth = fine_depth
+        try:
+            ft.zero_grad(set_to_none=True)
+            que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(1))
+            out = ft(ref_idx, que, que_i, torch.Generator().manual_seed(11))
+            losses = build_losses(cfg)(out, {})
+            total = sum(v.mean() for k, v in losses.items()
+                        if k.startswith("loss"))
+            total.backward()
+        finally:
+            del ft.net._fine_depth
+        grads = {n: p.grad.cpu().double() for n, p in ft.named_parameters()
+                 if p.grad is not None}
+        return total.item(), grads, seen
+
+    cpu_total, cpu_grads, cpu_fine = step(cpu)
+    what = (f"finetuning gradients, card vs CPU ({FT_GRAD_SCENE['n_train']} "
+            f"views {FT_GRAD_SCENE['size']}x{FT_GRAD_SCENE['size']}, "
+            f"{cfg['train_ray_num']} rays through the sphere from "
+            f"{cfg['neighbor_view_num']} views, {DN} + {DN} samples, "
+            f"ray_feats {list(state['ray_feats'].shape)})")
+    card_total, card_grads, card_fine = step(card)
+    compare_grads(card_grads, cpu_grads, what + ", each its own fine depths")
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(card_fine, cpu_fine))
+    compare_grads(step(card, cpu_fine)[1], cpu_grads,
+                  what + ", the card given the CPU's fine depths")
+    log(f"finetuning loss, card vs CPU: {card_total:.6f} vs {cpu_total:.6f};"
+        f" the fine depths differ by up to {moved:.3g}")
 
 
 def main():
@@ -1055,6 +1390,10 @@ def main():
     train_launches, backward_launches = train_phase(
         GA, dev, Path(__file__).resolve().parent, weights)
     counted.append(train_launches)
+    ft_launches, ft_backward = ft_phase(
+        GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
+        weights)
+    counted.append(ft_launches)
 
     source = "neuray_tpu_torch/csrc/gather_bilinear_border.cu"
     log(json.dumps({"kernels": [{
@@ -1064,7 +1403,7 @@ def main():
         **kernel_stats[k]} for k in ("f32", "bf16", "u8")] + [{
         "name": "gather_bilinear_border_backward_f32", "route": "cuda",
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
-        "launches": backward_launches, **backward_stats}]}))
+        "launches": backward_launches + ft_backward, **backward_stats}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

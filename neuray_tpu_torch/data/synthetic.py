@@ -6,19 +6,32 @@ with the same arithmetic, so the same seed gives the same arrays in both
 packages (``tests/test_torch_port_models.py`` checks it), while the port
 and ``chip_smoke.py`` import nothing of the JAX package.
 
+``write_nerf_synthetic_sphere`` writes the sphere as a NeRF-synthetic
+scene folder (PNG views, cameras, depth maps), which the finetuning path
+reads through ``data/database.py``.
+
 Conventions: channels-last, poses [3, 4] OpenCV world->cam, coords (x, y)
 float32.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
+
+from neuray_tpu_torch.data.colmap_io import write_array
+from neuray_tpu_torch.data.database import nerf_syn_val_ids
+from neuray_tpu_torch.utils.png import write_png
 
 RADIUS = 4.0
 DEPTH_RANGE = (2.5, 5.5)
 # (center, radius, palette)
 UNIT_SPHERE = (((0.0, 0.0, 0.0), 1.0, (1.0, 0.5, 1.0)),)
+# the NeRF-synthetic sphere folder: lego's field of view, one camera seed
+LEGO_CAMERA_ANGLE_X = 0.6911
+SCENE_SEED = 0
 
 
 def look_at_camera(rng: np.random.RandomState, h: int, w: int,
@@ -104,6 +117,56 @@ def make_sphere_scene(rng: np.random.RandomState, rfn: int, h: int,
                                (rfn, 1)),
         "depth": np.stack(depths)[..., None],
     }
+
+
+def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
+                                size: int = 800) -> None:
+    """Write the unit sphere as the NeRF-synthetic scene folder
+    ``{root}/nerf_synthetic/sphere``: ``n_train`` train views ``r_<i>``,
+    the val views of ``nerf_syn_val_ids`` and the test view ``r_0``, each
+    a size x size RGBA PNG (alpha the hit mask, black background) from a
+    random camera on the radius-4 shell (``look_at_camera``, in split
+    order from ``SCENE_SEED``) at lego's field of view
+    (``LEGO_CAMERA_ANGLE_X``); ``transforms_<split>.json`` with OpenGL
+    camera-to-world matrices; and each train view's analytic z-depth as
+    ``colmap_depth/train-r_<i>.png.geometric.bin``. Each view is rendered
+    with the pose and K that ``NeRFSyntheticDatabase`` reads back."""
+    rng = np.random.RandomState(SCENE_SEED)
+    base = Path(root) / "nerf_synthetic" / "sphere"
+    (base / "colmap_depth").mkdir(parents=True, exist_ok=True)
+    focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
+    K = np.asarray([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                   np.float32)
+    flip = np.diag(np.asarray([1, -1, -1], np.float32))
+    splits = (("train", [f"r_{i}" for i in range(n_train)]),
+              ("val", [i[len("val-"):] for i in nerf_syn_val_ids]),
+              ("test", ["r_0"]))
+    for split, names in splits:
+        (base / split).mkdir(exist_ok=True)
+        frames = []
+        for name in names:
+            pose, _ = look_at_camera(rng, size, size)
+            R, t = pose[:, :3].astype(np.float64), pose[:, 3]
+            c2w = np.eye(4)
+            c2w[:3, :3] = (np.diag([1.0, -1.0, -1.0]) @ R).T
+            c2w[:3, 3] = -R.T @ t
+            frames.append({"file_path": f"./{split}/{name}",
+                           "transform_matrix": c2w.tolist()})
+            # the pose as the database parses it back
+            gl = np.asarray(c2w, np.float32)
+            rot = gl[:3, :3].T
+            pose = np.concatenate([flip @ rot, flip @ (-rot @ gl[:3, 3:])], 1)
+            rgb, zdepth, hit = render_spheres_view(pose, K, size, size)
+            rgba = np.concatenate(
+                [np.round(rgb * 255), hit[..., None] * 255.0], -1)
+            write_png(str(base / split / f"{name}.png"),
+                      rgba.astype(np.uint8))
+            if split == "train":
+                write_array(str(base / "colmap_depth" /
+                                f"train-{name}.png.geometric.bin"), zdepth)
+        with open(base / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
+                       "frames": frames}, f)
 
 
 def make_query(rng: np.random.RandomState, h: int, w: int, rn: int,

@@ -15,7 +15,11 @@ the encode and the chunk loop under ``torch.inference_mode()``.
 with autograd (the encode included): the fine sampler reads the CDF at
 random draws from a ``torch.Generator`` and sorts them, the outputs carry
 ``pixel_colors_gt``, and ``depth_loss_coords`` adds the depth-loss head.
-Gradients reach the gather maps through the backward kernel.
+Gradients reach the gather maps through the backward kernel. With
+``use_self_hit_prob`` a training pass also samples the query view's own
+ray features (finetuning's consistency path, ``models/ft.py``), and
+``init_net_type=""`` builds no init net (finetuning's renderer, whose
+ray features are parameters).
 
 ``use_bf16`` runs the convs and dense layers in bf16 (parameters stay
 f32; their bf16 copies are cast once, ``blocks.ComputeCast``) and
@@ -135,11 +139,13 @@ class RenderConfig:
 
 # values the port runs; anything else raises until its slice lands
 # (``use_depth_loss`` changes no render: the depth-loss head runs where the
-# trainer passes depth_loss_coords, as in the JAX package)
+# trainer passes depth_loss_coords, as in the JAX package; init_net_type ""
+# builds no init net, as finetuning's renderer has none)
 _SUPPORTED = {
-    "vis_encoder_type": "default", "dist_decoder_type": "mixture_logistics",
-    "agg_net_type": "default", "init_net_type": "depth",
-    "use_dr_prediction": False, "use_self_hit_prob": False,
+    "vis_encoder_type": ("default",),
+    "dist_decoder_type": ("mixture_logistics",),
+    "agg_net_type": ("default",), "init_net_type": ("depth", ""),
+    "use_dr_prediction": (False,),
 }
 
 
@@ -160,11 +166,11 @@ class NeurayRenderer(nn.Module):
 
     def __init__(self, cfg: RenderConfig):
         super().__init__()
-        for field, value in _SUPPORTED.items():
-            if getattr(cfg, field) != value:
+        for field, values in _SUPPORTED.items():
+            if getattr(cfg, field) not in values:
                 raise NotImplementedError(
                     f"RenderConfig.{field}={getattr(cfg, field)!r} is not "
-                    f"ported yet (only {value!r})")
+                    f"ported yet (only {' or '.join(map(repr, values))})")
         self.cfg = cfg
         dt = torch.bfloat16 if cfg.use_bf16 else None
         self.image_encoder = ResUNetLight(3, (1, 2, 6, 4), 32, 16, dt)
@@ -177,12 +183,16 @@ class NeurayRenderer(nn.Module):
                 cfg.fine_use_vis, dtype=dt)
             self.fine_agg_net = DefaultAggregationNet(
                 cfg.neuray_dim, cfg.fine_depth_sample_num, dt)
-        self.init_net = DepthInitNet(cfg.init_diff_scale, dt)
+        if cfg.init_net_type:
+            self.init_net = DepthInitNet(cfg.init_diff_scale, dt)
 
     # ---------------- per-scene stages ----------------
 
     def initialize_ray_feats(self, ref: Tensors) -> torch.Tensor:
         """Init net: raw visibility features G' [rfn, h/4, w/4, 32]."""
+        if not self.cfg.init_net_type:
+            raise ValueError("this renderer has no init net "
+                             "(init_net_type=''): its ray features are given")
         return self.init_net(ref)
 
     def encode_scene(self, ref: Tensors, ray_feats_raw: torch.Tensor):
@@ -205,11 +215,18 @@ class NeurayRenderer(nn.Module):
         ``u8_map_supported`` (else bf16): the bf16-rounded map quantized
         per channel (``quantize_u8``) and the image as 8-bit codes,
         with their f32 dequantization ``feats_scale``, ``feats_offset``
-        [64] and ``rgb_scale``, ``rgb_offset`` [3]."""
-        if ref["ray_feats"].shape[1:3] != ref["img_feats"].shape[1:3]:
-            raise NotImplementedError(
-                "ray_feats and img_feats at different resolutions")
+        [64] and ``rgb_scale``, ``rgb_offset`` [3].
+
+        ray_feats and img_feats at different resolutions (maps encoded
+        elsewhere: ``encode_scene``'s vis encoder takes them at one) make
+        no packed map: the chunk gathers the f32 image and each f32 map on
+        its own, three launches, as the JAX package does on every route."""
         ref = dict(ref)
+        if ref["ray_feats"].shape[1:3] != ref["img_feats"].shape[1:3]:
+            for k in ("ray_feats", "img_feats"):
+                ref[k] = ref[k].float().contiguous()
+            ref["rgb_map"] = ref["imgs"]
+            return ref
         feats = torch.cat([ref["ray_feats"], ref["img_feats"]], dim=-1)
         imgs = ref["imgs"]
         if not use_bf16:
@@ -236,7 +253,9 @@ class NeurayRenderer(nn.Module):
         """Project sample points [qn, rn, dn, 3] into every ref view and
         gather rgb (full res, align_corners=True) and the 64-ch feature
         map (1/4 res, align_corners=False), both border-padded, in the
-        maps' dtype (bf16 from u8 maps)."""
+        maps' dtype (bf16 from u8 maps); without the packed map (two
+        resolutions, ``build_gather_cache``) ray_feats and img_feats one
+        after the other."""
         qn, rn, dn, _ = que_pts.shape
         rfn, h, w, _ = ref["imgs"].shape
         pts = que_pts.reshape(qn * rn * dn, 3)
@@ -250,17 +269,22 @@ class NeurayRenderer(nn.Module):
 
         prj_rgb = interpolate_feature_map(ref["rgb_map"], prj_pts, maskf, h,
                                           w, dequant("rgb"))
-        out = interpolate_feature_map(ref["feats"], prj_pts, maskf, h, w,
-                                      dequant("feats"))
-        nf = ref["ray_feats"].shape[-1]
+        if "feats" in ref:
+            out = interpolate_feature_map(ref["feats"], prj_pts, maskf, h, w,
+                                          dequant("feats"))
+            nf = ref["ray_feats"].shape[-1]
+            prj_ray, prj_img = out[..., :nf], out[..., nf:]
+        else:
+            prj_ray, prj_img = (
+                interpolate_feature_map(ref[k], prj_pts, maskf, h, w)
+                for k in ("ray_feats", "img_feats"))
 
         def rs(x):
             return x.reshape(rfn, qn, rn, dn, -1)
 
         return {"dir": rs(prj_dir), "depth": rs(prj_depth),
                 "mask": rs(maskf), "rgb": rs(prj_rgb),
-                "ray_feats": rs(out[..., :nf]),
-                "img_feats": rs(out[..., nf:])}
+                "ray_feats": rs(prj_ray), "img_feats": rs(prj_img)}
 
     def _predict_proj_ray_prob(self, prj: Tensors,
                                ref_depth_range: torch.Tensor,
@@ -283,14 +307,43 @@ class NeurayRenderer(nn.Module):
         hit_prob = alpha_values2hit_prob(alpha)
         return hit_prob, colors, composite_colors(hit_prob, colors)
 
+    def _predict_self_hit_prob(self, que: Tensors, que_depth: torch.Tensor,
+                               que_dists: torch.Tensor,
+                               is_fine: bool) -> torch.Tensor:
+        """The query view's own hit probability along its rays, from its
+        own vis-encoded ray features (finetuning's consistency path):
+        ``que["ray_feats"]`` [qn, fh, fw, f] sampled at the query coords of
+        the (h, w) image ``que["imgs"]`` through the fused gather (one
+        launch; its backward reaches the map), decoded by the coarse or
+        fine dist decoder, then ``compute_prob`` at the query's own depths
+        -> [qn, rn, dn]."""
+        qn, rn, _ = que["coords"].shape
+        h, w = que["imgs"].shape[1:3]
+        mask = torch.ones((qn, rn), device=que["coords"].device)
+        feats = interpolate_feature_map(que["ray_feats"].contiguous(),
+                                        que["coords"].contiguous(), mask, h, w)
+        decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
+        mean, var, vis, aw = decoder(feats)
+
+        def expand(x):
+            return None if x is None else x[:, :, None]
+
+        _, _, hit_prob = decoder.compute_prob(
+            que_depth, que_dists, expand(mean), expand(var), expand(vis),
+            expand(aw), False, que["depth_range"])
+        return hit_prob
+
     def _render_by_depth(self, que_depth: torch.Tensor, que: Tensors,
                          ref: Tensors, is_fine: bool,
-                         pos: torch.Tensor | None = None) -> Tensors:
+                         pos: torch.Tensor | None = None,
+                         is_train: bool = False) -> Tensors:
         """One pass at the given depths [qn, rn, dn]; ``pos`` [qn, rn, dn]
         gives the focused render's attention positions. ``colors_nr``,
         the per-sample radiance [qn, rn, dn, 3], is in the outputs because
         the agg net computes it anyway; the chunk loops keep it only when
-        asked (``estimate_window_clip`` reads it)."""
+        asked (``estimate_window_clip`` reads it). In training with
+        ``use_self_hit_prob`` the outputs carry ``hit_prob_self``
+        (``_predict_self_hit_prob``; que then holds ``ray_feats``)."""
         c = self.cfg
         que_dists = S.depth2inv_dists(que_depth, que["depth_range"])
         que_pts, que_dir = G.depth2points(
@@ -302,6 +355,9 @@ class NeurayRenderer(nn.Module):
             prj, que_dir, is_fine, pos)
         outputs = {"pixel_colors_nr": pixel_colors_nr,
                    "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
+        if is_train and c.use_self_hit_prob:
+            outputs["hit_prob_self"] = self._predict_self_hit_prob(
+                que, que_depth, que_dists, is_fine)
         if que.get("imgs") is not None:
             outputs["pixel_colors_gt"] = grid_sample_nhwc(
                 que["imgs"], que["coords"], align_corners=True)
@@ -350,12 +406,14 @@ class NeurayRenderer(nn.Module):
         depths are deterministic in both modes (as in the JAX trainer);
         the fine ones are resampled from the detached coarse hit_prob at
         fixed u (eval) or at u drawn from ``generator`` and sorted
-        (``is_train``)."""
+        (``is_train``, which also adds the self-hit outputs where
+        configured)."""
         c = self.cfg
         qn, rn, _ = que["coords"].shape
         que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
                                       c.depth_sample_num)
-        outputs = self._render_by_depth(que_depth, que, ref, False)
+        outputs = self._render_by_depth(que_depth, que, ref, False, None,
+                                        is_train)
         if c.use_hierarchical_sampling:
             u = (self.draw_fine_u((qn, rn, c.fine_depth_sample_num),
                                   que_depth.device, generator)
@@ -364,7 +422,7 @@ class NeurayRenderer(nn.Module):
                 que_depth, outputs["hit_prob_nr"].detach(),
                 que["depth_range"], c.fine_depth_sample_num, u)
             self._add_fine(outputs, self._render_by_depth(
-                fine_depth, que, ref, True))
+                fine_depth, que, ref, True, None, is_train))
         return outputs
 
     def render_chunk_fine(self, ref: Tensors, que: Tensors,

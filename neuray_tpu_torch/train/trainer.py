@@ -1,7 +1,8 @@
 """Generalization training on one device: a step-based loop with Adam,
 checkpoint and resume, periodic validation, best-model selection and
 txt logs (port of ``neuray_tpu/train/trainer.py``; reference
-train/trainer.py and train/train_valid.py).
+train/trainer.py and train/train_valid.py). ``BaseTrainer`` holds what
+it shares with the finetuning trainer (``train/ft_trainer.py``).
 
 What differs from the JAX trainer:
   * one device (``device``: CUDA unless the caller asks for the CPU);
@@ -26,6 +27,7 @@ from typing import Any, Dict, Iterator
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from neuray_tpu_torch.data.train_dataset import name2dataset
 from neuray_tpu_torch.models.renderer import (
@@ -33,6 +35,7 @@ from neuray_tpu_torch.models.renderer import (
 from neuray_tpu_torch.train.losses import build_losses
 from neuray_tpu_torch.train.lr import name2lr_manager
 from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
+from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
 
 VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine")
@@ -55,18 +58,177 @@ class Logger:
             print(msg, flush=True)
 
 
-def resolve_device(device) -> torch.device:
-    """The training device: the given one, else CUDA. Without a CUDA
-    device and without an explicit ``device="cpu"`` this raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to train on "
-                           "the CPU")
-    return torch.device("cuda")
+class BaseTrainer:
+    """What the generalization and the finetuning trainer share: the
+    config, the device, the logger, the schedule, the losses, the val
+    metrics, one ``torch.optim.Adam`` over ``model``'s parameters,
+    ``torch.save`` checkpoints with a strict resume, and the loop of
+    steps, logs, validations, best-model selection and saves.
+
+    A subclass sets ``model`` (the module whose state is saved and whose
+    parameters are trained) and supplies ``_init_state`` (a fresh state,
+    with no checkpoint to resume), ``_load_state`` (a checkpoint's
+    ``params``), ``_batches`` (the batches from a step to ``total_step``),
+    ``_losses`` (a batch -> its losses) and ``_val_sets`` (each val set's
+    log name and its views' outputs)."""
+
+    default_cfg: Dict[str, Any] = {}
+    # also validate at the last step (the gen trainer does; finetuning
+    # validates only every val_interval steps, as in the JAX package)
+    val_at_last_step = False
+
+    def __init__(self, cfg: Dict[str, Any], device=None):
+        self.cfg = {**self.default_cfg, **cfg}
+        if (self.cfg["n_devices"] or 1) > 1:
+            raise NotImplementedError("training on more than one device is "
+                                      "not ported yet (ROADMAP item 11)")
+        unknown = set(self.cfg["val_metric"]) - set(name2metrics)
+        if unknown:
+            raise NotImplementedError(f"val metrics {sorted(unknown)} are "
+                                      "not ported yet")
+        self.device = resolve_device(device)
+        self.model_dir = f'{self.cfg["output_root"]}/{self.cfg["name"]}'
+        self.logger = Logger(self.model_dir)
+        self.schedule = name2lr_manager[self.cfg["lr_type"]](
+            self.cfg["lr_cfg"])
+        self.loss_fn = build_losses(self.cfg)
+        self.val_metrics = [name2metrics[m](self.cfg)
+                            for m in self.cfg["val_metric"]]
+        self.key_metric = name2key_metrics[self.cfg["key_metric_name"]]
+        self.generator = torch.Generator()
+        self.optimizer = None
+        self.opt_count = 0       # Adam updates made with this state
+
+    # ---------------- state ----------------
+
+    def build_optimizer(self) -> None:
+        """A fresh Adam over ``model``'s parameters as they stand."""
+        self.params = list(self.model.parameters())
+        self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.opt_count = 0
+
+    def _save(self, step: int, best_metric: float, path: str = "ckpt.pt"):
+        torch.save({"step": int(step), "best_metric": float(best_metric),
+                    "params": self.model.state_dict(),
+                    "opt_state": self.optimizer.state_dict(),
+                    "opt_count": self.opt_count},
+                   f"{self.model_dir}/{path}")
+
+    def _start(self) -> tuple[int, float]:
+        """Resume from ``ckpt.pt`` if there is one (its optimizer state
+        strictly unless ``resume_reset_opt``), else a fresh state; then a
+        fresh optimizer. Returns (step, best metric)."""
+        path = f"{self.model_dir}/ckpt.pt"
+        if not os.path.exists(path):
+            self._init_state()
+            self.build_optimizer()
+            return 0, -1e9
+        restored = torch.load(path, map_location=self.device,
+                              weights_only=True)
+        self._load_state(restored["params"])
+        self.build_optimizer()
+        if _restore_opt_state(self.optimizer, restored["opt_state"],
+                              strict=not self.cfg.get("resume_reset_opt",
+                                                      False)):
+            self.opt_count = restored["opt_count"]
+        step = int(restored["step"])
+        print(f"resumed from step {step}", flush=True)
+        return step, float(restored["best_metric"])
+
+    def _init_state(self) -> None:
+        raise NotImplementedError
+
+    def _load_state(self, params: Dict[str, torch.Tensor]) -> None:
+        raise NotImplementedError
+
+    # ---------------- steps ----------------
+
+    def _batches(self, step: int) -> Iterator[Any]:
+        raise NotImplementedError
+
+    def _losses(self, batch) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def train_step(self, batch) -> Dict[str, float]:
+        """One Adam update on one batch: the training forward and losses
+        (``_losses``), total = the sum of the means of the ``loss*``
+        entries, backward, step. Returns each loss's mean and
+        ``loss_total``."""
+        metrics = adam_update(self.optimizer, self.params,
+                              self.schedule(self.opt_count),
+                              self._losses(batch))
+        self.opt_count += 1
+        return metrics
+
+    # ---------------- main loop ----------------
+
+    def run(self) -> nn.Module:
+        cfg = self.cfg
+        step, best_metric = self._start()
+        if step == 0 and cfg.get("validate_initialization", False):
+            self.validate(0)
+        train_results: Dict[str, list] = {}
+        t0 = time.time()
+        for batch in self._batches(step):
+            metrics = self.train_step(batch)
+            step += 1
+            for k, v in metrics.items():
+                train_results.setdefault(k, []).append(v)
+
+            if step % cfg["train_log_step"] == 0:
+                logs = {k: float(np.mean(v))
+                        for k, v in train_results.items()}
+                logs["steps_per_sec"] = cfg["train_log_step"] / (
+                    time.time() - t0)
+                self.logger.log(logs, "train", step, verbose=True)
+                train_results = {}
+                t0 = time.time()
+
+            if step % cfg["val_interval"] == 0 or (
+                    self.val_at_last_step and step == cfg["total_step"]):
+                val_metric = self.validate(step)
+                if val_metric is not None and val_metric > best_metric:
+                    best_metric = val_metric
+                    self._save(step, best_metric, "ckpt_best.pt")
+                t0 = time.time()
+
+            if step % cfg["save_interval"] == 0:
+                self._save(step, best_metric)
+        self._save(step, best_metric)
+        return self.model
+
+    # ---------------- validation ----------------
+
+    def _val_sets(self) -> Iterator[tuple]:
+        raise NotImplementedError
+
+    def validate(self, step: int):
+        """Each val set's views (``_val_sets``: outputs as numpy with
+        ``pixel_colors_gt``, and the image's (h, w)) through the val
+        metrics; log their means to ``<name>.txt`` and return the key
+        metric of the last set (None without val sets)."""
+        key_vals = []
+        for name, views in self._val_sets():
+            results: Dict[str, list] = {}
+            t0 = time.time()
+            for outputs, que_shape in views:
+                for metric in self.val_metrics:
+                    for k, v in metric(outputs, {"que_shape": que_shape},
+                                       step).items():
+                        results.setdefault(k, []).append(v)
+            if not results:
+                continue
+            logs = {k: float(np.mean(np.concatenate(v)))
+                    for k, v in results.items()}
+            logs["eval_time"] = time.time() - t0
+            self.logger.log(logs, name, step, verbose=True)
+            key_vals.append(self.key_metric(
+                {k: np.concatenate(v) for k, v in results.items()}))
+        return key_vals[-1] if key_vals else None
 
 
-class Trainer:
+class Trainer(BaseTrainer):
     default_cfg = {
         "name": "neuray_tpu_model",
         "total_step": 400000,
@@ -86,29 +248,16 @@ class Trainer:
         "n_devices": None,
         "worker_num": 8,
     }
+    val_at_last_step = True
 
     def __init__(self, cfg: Dict[str, Any], device=None):
-        self.cfg = {**self.default_cfg, **cfg}
-        if (self.cfg["n_devices"] or 1) > 1:
-            raise NotImplementedError("training on more than one device is "
-                                      "not ported yet")
-        self.device = resolve_device(device)
-        self.model_dir = f'{self.cfg["output_root"]}/{self.cfg["name"]}'
-        self.logger = Logger(self.model_dir)
-
+        super().__init__(cfg, device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             self.renderer = NeurayRenderer(RenderConfig.from_cfg(self.cfg))
             init_like_flax(self.renderer)
         self.renderer.to(self.device).train()
-        self.params = list(self.renderer.parameters())
-        self.schedule = name2lr_manager[self.cfg["lr_type"]](
-            self.cfg["lr_cfg"])
-        self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
-                                          betas=(0.9, 0.999), eps=1e-8)
-        self.opt_count = 0       # Adam updates made with this state
-        self.loss_fn = build_losses(self.cfg)
-        self.generator = torch.Generator()
+        self.build_optimizer()
 
         dataset_type = self.cfg["train_dataset_type"]
         if dataset_type not in name2dataset:
@@ -116,39 +265,19 @@ class Trainer:
                                       "not ported yet")
         self.train_dataset = name2dataset[dataset_type](
             self.cfg.get("train_dataset_cfg", {}), True)
-        unknown = set(self.cfg["val_metric"]) - set(name2metrics)
-        if unknown:
-            raise NotImplementedError(f"val metrics {sorted(unknown)} are "
-                                      "not ported yet")
-        self.val_metrics = [name2metrics[m](self.cfg)
-                            for m in self.cfg["val_metric"]]
-        self.key_metric = name2key_metrics[self.cfg["key_metric_name"]]
-        self._val_sets: Dict[str, Any] = {}
+        self._val_datasets: Dict[str, Any] = {}
+
+    @property
+    def model(self) -> NeurayRenderer:
+        return self.renderer
 
     # ---------------- state ----------------
 
-    def _save(self, step: int, best_metric: float, path: str = "ckpt.pt"):
-        torch.save({"step": int(step), "best_metric": float(best_metric),
-                    "params": self.renderer.state_dict(),
-                    "opt_state": self.optimizer.state_dict(),
-                    "opt_count": self.opt_count},
-                   f"{self.model_dir}/{path}")
+    def _init_state(self) -> None:
+        """The trainer's own init, made when it was built."""
 
-    def _load(self, path: str = "ckpt.pt"):
-        full = f"{self.model_dir}/{path}"
-        if not os.path.exists(full):
-            return None
-        return torch.load(full, map_location=self.device, weights_only=True)
-
-    def _resume(self, restored) -> tuple[int, float]:
-        self.renderer.load_state_dict(restored["params"])
-        if _restore_opt_state(self.optimizer, restored["opt_state"],
-                              strict=not self.cfg.get("resume_reset_opt",
-                                                      False)):
-            self.opt_count = restored["opt_count"]
-        step = int(restored["step"])
-        print(f"resumed from step {step}", flush=True)
-        return step, float(restored["best_metric"])
+    def _load_state(self, params: Dict[str, torch.Tensor]) -> None:
+        self.renderer.load_state_dict(params)
 
     # ---------------- steps ----------------
 
@@ -165,6 +294,11 @@ class Trainer:
             num_workers=workers, multiprocessing_context="spawn",
             pin_memory=self.device.type == "cuda"))
 
+    def _batches(self, step: int) -> Iterator[Dict[str, Any]]:
+        self.generator.manual_seed(7)
+        for sample in self._samples(max(self.cfg["total_step"] - step, 0)):
+            yield self.to_device(sample)
+
     def to_device(self, sample: Dict[str, Any]) -> Dict[str, Any]:
         """A sample's arrays as tensors on the training device (the
         scene name dropped)."""
@@ -178,101 +312,57 @@ class Trainer:
             return x
         return {k: move(v) for k, v in sample.items() if k != "scene_name"}
 
-    def train_step(self, batch: Dict[str, Any]) -> Dict[str, float]:
-        """One Adam update on one sample (tensors on the device): the
-        training forward, the losses, total = the sum of the means of the
-        ``loss*`` entries, backward, step. Returns each loss's mean and
-        ``loss_total``."""
+    def _losses(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The training forward of one sample (tensors on the device)
+        and its losses."""
         outputs = self.renderer(batch["ref"], batch["que"], True,
                                 batch.get("depth_loss_coords"),
                                 self.generator)
-        losses = self.loss_fn(outputs, batch)
-        means = {k: v.mean() for k, v in losses.items()}
-        total = sum(v for k, v in means.items() if k.startswith("loss"))
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.opt_count)
-        self.optimizer.step()
-        self.opt_count += 1
-        values = torch.stack([*means.values(), total]).tolist()
-        return dict(zip([*means, "loss_total"], values))
-
-    # ---------------- main loop ----------------
-
-    def run(self) -> NeurayRenderer:
-        cfg = self.cfg
-        restored = self._load()
-        step, best_metric = (self._resume(restored) if restored is not None
-                             else (0, -1e9))
-        self.generator.manual_seed(7)
-        train_results: Dict[str, list] = {}
-        t0 = time.time()
-        for sample in self._samples(max(cfg["total_step"] - step, 0)):
-            metrics = self.train_step(self.to_device(sample))
-            step += 1
-            for k, v in metrics.items():
-                train_results.setdefault(k, []).append(v)
-
-            if step % cfg["train_log_step"] == 0:
-                logs = {k: float(np.mean(v))
-                        for k, v in train_results.items()}
-                logs["steps_per_sec"] = cfg["train_log_step"] / (
-                    time.time() - t0)
-                self.logger.log(logs, "train", step, verbose=True)
-                train_results = {}
-                t0 = time.time()
-
-            if step % cfg["val_interval"] == 0 or step == cfg["total_step"]:
-                val_metric = self.validate(step)
-                if val_metric is not None and val_metric > best_metric:
-                    best_metric = val_metric
-                    self._save(step, best_metric, "ckpt_best.pt")
-                t0 = time.time()
-
-            if step % cfg["save_interval"] == 0:
-                self._save(step, best_metric)
-        self._save(step, best_metric)
-        return self.renderer
+        return self.loss_fn(outputs, batch)
 
     # ---------------- validation ----------------
 
-    def validate(self, step: int):
-        """Render every view of each val set with ``render_full``, log its
-        metrics to ``val-<name>.txt`` and return the key metric of the
-        last set (None without val sets)."""
-        key_vals = []
+    def _val_sets(self):
+        """Every view of each val set rendered with ``render_full``; logged
+        to ``val-<name>.txt``."""
         for val_set in self.cfg["val_set_list"]:
             name = val_set["name"]
-            if name not in self._val_sets:
-                self._val_sets[name] = name2dataset[val_set["type"]](
+            if name not in self._val_datasets:
+                self._val_datasets[name] = name2dataset[val_set["type"]](
                     {**val_set.get("cfg", {})}, False)
-            dataset = self._val_sets[name]
-            results: Dict[str, list] = {}
-            t0 = time.time()
-            for i in range(len(dataset)):
-                sample = self.to_device(dataset[i])
-                que = {k: v for k, v in sample["que"].items() if k != "imgs"}
-                outputs = {k: v.cpu().numpy() for k, v in render_full(
-                    self.renderer, sample["ref"], que, VAL_KEEP).items()}
-                imgs = sample["que"]["imgs"]
-                outputs["pixel_colors_gt"] = imgs.reshape(1, -1, 3).cpu(
-                    ).numpy()
-                data_gt = {"que_shape": tuple(imgs.shape[1:3])}
-                for metric in self.val_metrics:
-                    for k, v in metric(outputs, data_gt, step).items():
-                        results.setdefault(k, []).append(v)
-            logs = {k: float(np.mean(np.concatenate(v)))
-                    for k, v in results.items()}
-            logs["eval_time"] = time.time() - t0
-            self.logger.log(logs, f"val-{name}", step, verbose=True)
-            if results:
-                key_vals.append(self.key_metric(
-                    {k: np.concatenate(v) for k, v in results.items()}))
-        return key_vals[-1] if key_vals else None
+            yield f"val-{name}", self._val_views(self._val_datasets[name])
+
+    def _val_views(self, dataset):
+        for i in range(len(dataset)):
+            sample = self.to_device(dataset[i])
+            que = {k: v for k, v in sample["que"].items() if k != "imgs"}
+            outputs = {k: v.cpu().numpy() for k, v in render_full(
+                self.renderer, sample["ref"], que, VAL_KEEP).items()}
+            imgs = sample["que"]["imgs"]
+            outputs["pixel_colors_gt"] = imgs.reshape(1, -1, 3).cpu().numpy()
+            yield outputs, tuple(imgs.shape[1:3])
+
+
+def adam_update(optimizer: torch.optim.Optimizer, params,
+                lr: float, losses: Dict[str, torch.Tensor]
+                ) -> Dict[str, float]:
+    """One update of ``optimizer`` at ``lr`` on ``losses`` (name -> per-view
+    or per-query loss): total = the sum of the means of the ``loss*``
+    entries, backward, and a zero gradient for each of ``params`` without
+    one (so every Adam moment moves as optax's does). Returns each loss's
+    mean and ``loss_total``."""
+    means = {k: v.mean() for k, v in losses.items()}
+    total = sum(v for k, v in means.items() if k.startswith("loss"))
+    optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    values = torch.stack([*means.values(), total]).tolist()
+    return dict(zip([*means, "loss_total"], values))
 
 
 def _restore_opt_state(optimizer: torch.optim.Optimizer,

@@ -149,3 +149,42 @@ def load_flax_params(module: nn.Module, tree: Dict[str, Any]) -> None:
         raise ValueError(f"weight bridge mismatch: missing {missing}, "
                          f"left over {extra}")
     module.load_state_dict(state, strict=True)
+
+
+# ---------------- finetuning's tree ----------------
+# The JAX package's FT parameters are {"net": {"params": <the renderer's
+# tree, no init_net>}, "ray_feats": [N, fh, fw, c]}; the port's FT state
+# (``models/ft.py: FtRenderer``) is its renderer ``net`` and the one
+# parameter ``ray_feats`` [N, fh, fw, c], keyed ``net.<leaf>`` and
+# ``ray_feats`` in its state_dict.
+
+def ft_flax_to_torch(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX FT tree -> the port's FT state_dict (f32 CPU tensors)."""
+    state = {f"net.{k}": v for k, v in flax_to_torch(tree["net"]).items()}
+    state["ray_feats"] = torch.from_numpy(
+        np.array(tree["ray_feats"], np.float32))
+    return state
+
+
+def ft_torch_to_flax(ft: nn.Module,
+                     tensors: Dict[str, torch.Tensor] | None = None
+                     ) -> Dict[str, Any]:
+    """The inverse of ``ft_flax_to_torch`` for an FT module (``net`` and
+    ``ray_feats``): tensors keyed as its parameters (default: the
+    parameters; or, say, their gradients) -> the JAX FT tree of f32
+    numpy arrays."""
+    named = dict(ft.named_parameters())
+    tensors = named if tensors is None else tensors
+    net = {k[len("net."):]: v for k, v in tensors.items()
+           if k.startswith("net.")}
+    return {"net": torch_to_flax(ft.net, net),
+            "ray_feats": tensors["ray_feats"].detach().cpu().float().numpy()}
+
+
+def load_ft_flax_params(ft: nn.Module, tree: Dict[str, Any]) -> None:
+    """Load a JAX FT tree into an FT module in place: the net by
+    ``load_flax_params`` (an ``init_net`` leaf is left over and raises)
+    and ``ray_feats`` by ``ft.set_ray_feats``."""
+    load_flax_params(ft.net, tree["net"])
+    ft.set_ray_feats(torch.from_numpy(np.array(tree["ray_feats"],
+                                               np.float32)))
