@@ -217,12 +217,15 @@ def time_ms(fn, *args, warmup=3, iters=20):
 
 
 def device_ms(fn, *args, n=10, tries=3):
-    """Device time per call from ``torch.profiler``'s device rows: the
-    summed duration of every device event of n calls, over n (at the
-    per-chunk shapes a CUDA-event window measures the wrapper's host
-    time, not the kernel). A window whose device rows come back empty
-    (seen once on the card, on a 4 us kernel) is profiled again, up to
-    ``tries`` windows. Returns (ms, device events per call, names)."""
+    """Device time per call from ``torch.profiler``'s device rows: for
+    each kernel (or memset) of a call, the mean duration of its rows over
+    n calls, summed (at the per-chunk shapes a CUDA-event window measures
+    the wrapper's host time, not the kernel). A window whose device rows
+    come back empty (seen once on the card, on a 4 us kernel) or with a
+    kernel short of one row a call (seen after the training phases: rows
+    dropped) is profiled again, up to ``tries`` windows; the means stand
+    for the rows that came. Returns (ms, device events per call, {short
+    kernel name: its ms per call})."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -234,14 +237,19 @@ def device_ms(fn, *args, n=10, tries=3):
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        rows = {}
+        for e in events:
+            name = e.name.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0][:60]
+            rows.setdefault(name, []).append(e.time_range.elapsed_us())
+        if rows and all(len(v) == n for v in rows.values()):
             break
-    else:
+    if not rows:
         raise RuntimeError(f"torch.profiler recorded no device time in "
                            f"{tries} windows")
-    total_us = sum(e.time_range.elapsed_us() for e in events)
-    return (total_us / n / 1e3, len(events) / n,
-            sorted({e.name for e in events}))
+    by_name = {k: round(sum(v) / len(v) / 1e3, 5)
+               for k, v in sorted(rows.items())}
+    return sum(by_name.values()), len(events) / n, by_name
 
 
 # the bound: NVIDIA H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s
@@ -431,24 +439,50 @@ BACKWARD_SHAPES = [
     ("self-hit ray_feats 1/4 res, per finetuning pass", 1, H // 4, W // 4,
      32, FT_PROFILE["train_ray_num"], ("fused",), (H, W), False, False)]
 BACKWARD_KEY = ("feats 1/4 res, per training pass", "fused")
+# the long bin: every point of a view on one pixel, at the training pass's
+# shape. Map pixels (7.5, 7.5), a corner of four 8x8 tiles, and the frame
+# point (303.5, 199.5) of the 400x608 frame, pixel (75.5, 49.5) of its
+# 100x152 map (x / 607 and y / 399 are 0.5 exactly). Weights 0.25 and
+# grad_out integers in [-4, 4]: every partial sum of the 32,768 products
+# on a pixel is exact in f32, so any order of the sums gives one result
+# (random grad_out would leave both sides ~1e-3 of f32 rounding apart).
+LONG_BIN = {"map pixels": (7.5, 7.5), "fused": (303.5, 199.5)}
+# edge-case checks of the tiled backward (held, not timed): the channel
+# counts of every route, on a map of (views, map h, map w) with this many
+# points a view
+EDGE_CHANNELS = (1, 3, 4, 5, 8, 32, 64, 67)
+EDGE_SHAPE = (2, TRAIN_H // 4, TRAIN_W // 4, 4096)
 
 
 def gather_backward_bound(GA, grad_out, pix, fh, fw, masked):
     """The least time the card could take for one backward of the f32
     gather at map pixels pix [v, p, 2], counted as ``gather_bound``
-    counts: grad_out [v, p, c], the coordinates and the mask read once,
-    the [v, fh, fw, c] gradient zero-filled once and its touched pixels
-    written once, over the HBM rate, against 10 flops a channel (the
-    row and four tap weights, four adds; the mask +1) over the f32 rate.
-    Returns (bytes, touched pixels, bound ms, "bytes" or "operations")."""
+    counts: grad_out [v, p, c], the coordinates and the mask read once
+    and the [v, fh, fw, c] gradient written once (whatever implements
+    it), over the HBM rate, against 10 flops a channel (the row and four
+    tap weights, four adds; the mask +1) over the f32 rate. Returns
+    (bytes, touched pixels, bound ms, "bytes" or "operations"); the
+    touched pixels are for information."""
     v, p, c = grad_out.shape
     touched = GA.touched_pixels(pix, fh, fw)
     nbytes = (v * p * c * 4 + v * p * 2 * 4 + (v * p * 4 if masked else 0)
-              + v * fh * fw * c * 4 + touched * c * 4)
+              + v * fh * fw * c * 4)
     flops = v * p * c * (10 + masked)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return (nbytes, touched, 1e3 * max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
+
+
+def most_taps(GA, pix, fh, fw):
+    """The most taps that land on one pixel of one view, for points at map
+    pixels pix [v, p, 2]."""
+    v = pix.shape[0]
+    x0, y0, _, _ = GA._anchor(pix, fh, fw)
+    idx = (y0.long() * fw + x0.long())[..., None] + torch.tensor(
+        [0, 1, fw, fw + 1], device=pix.device)
+    idx = idx.reshape(v, -1) + fh * fw * torch.arange(
+        v, device=pix.device)[:, None]
+    return int(torch.bincount(idx.flatten()).max()) if idx.numel() else 0
 
 
 def grid_sample_backward_fn(grad_out, feats_shape, points, size, align):
@@ -490,20 +524,174 @@ def real_training_points(dev):
 
 def hold_backward(out, ref):
     """The backward kernel against its plain twin: both form every
-    product alike, but the atomics add them in another order on every
-    run, so each element within 1e-5 relative and 1e-6 of the largest
-    gradient absolute. Returns the max abs error."""
+    product alike, but they sum in other orders (the kernel's bins fill
+    in another order on every run), so each element within 1e-5 relative
+    and 1e-6 of the largest gradient absolute. Returns the max abs
+    error."""
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-5,
                                atol=1e-6 * ref.abs().max().item())
     return (out - ref).abs().max().item()
 
 
-def check_backward(GA, dev):
-    """Phase 3, the backward kernel at the training steps' shapes: random
-    coords (5% outside the map) and, for generalization training's
-    64-channel pass, the real coords of a training sample's coarse pass.
-    Returns the kernels-line stats of ``BACKWARD_KEY``'s row."""
+def poisoned(fn, *args):
+    """``fn(*args)`` (a backward entry) into a block that held NaN: a block
+    of the gradient's size is filled with NaN and freed, so the caching
+    allocator hands it back as the gradient; a pixel the kernels do not
+    write stays NaN. Raises unless the block came back and the result is
+    finite."""
+    grad_out, *_, fh, fw = args
+    v, _, c = grad_out.shape
+    junk = torch.full((v, fh, fw, c), float("nan"), device=grad_out.device)
+    ptr = junk.data_ptr()
+    del junk
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if out.data_ptr() != ptr:
+        raise RuntimeError("the NaN-filled block did not come back as the "
+                           "gradient")
+    bad = int((~torch.isfinite(out)).sum())
+    if bad:
+        raise RuntimeError(f"the backward left {bad} gradient elements "
+                           "unwritten or not finite")
+    return out
+
+
+def backward_call(GA, grad_out, at, m, h, w, fh, fw):
+    """(kernel entry, plain twin, args, map pixels of the points, the
+    library's frame and align_corners) of one backward: the map-pixel
+    entry when m is None, else the fused entry with mask m."""
+    if m is None:
+        return (GA.gather_bilinear_border_backward,
+                GA.gather_bilinear_border_backward_ref,
+                (grad_out, at, fh, fw), at, (fh, fw), True)
+    align = fh == h and fw == w
+    return (GA.gather_feature_map_backward,
+            GA.gather_feature_map_backward_ref,
+            (grad_out, at, m, h, w, fh, fw),
+            GA.feature_pixel_coords(at, h, w, fh, fw, align), (h, w), align)
+
+
+def hold_backward_call(GA, grad_out, at, m, h, w, fh, fw):
+    """One backward launch held to its plain twin, into a NaN-poisoned
+    block (``poisoned``), counted once. Returns (max abs error, kernel
+    entry, its args, map pixels, library frame, align)."""
+    fn, plain, args, pix, size, align = backward_call(
+        GA, grad_out, at, m, h, w, fh, fw)
+    before = GA.BACKWARD_LAUNCHES
+    err = hold_backward(poisoned(fn, *args), plain(*args))
+    if GA.BACKWARD_LAUNCHES != before + 1:
+        raise RuntimeError("the backward kernel was not launched once")
+    return err, fn, plain, args, pix, size, align
+
+
+def backward_row(GA, what, entry, grad_out, at, m, h, w, fh, fw,
+                 parent=None):
+    """One timed backward row: held (``hold_backward_call``), the kernel's
+    device time (profiler) and kernels a call, its event time, the plain
+    twin's and ``grid_sampler_2d_backward``'s, the bound and its share,
+    taps a touched pixel and the most on one pixel; with ``parent`` (the
+    gather module of an earlier checkout) its device time on the same
+    inputs, in turns parent, this, this, parent. Logs one line; returns
+    the row."""
+    v, p, c = grad_out.shape
+    err, fn, plain, args, pix, size, align = hold_backward_call(
+        GA, grad_out, at, m, h, w, fh, fw)
+    ms = time_ms(fn, *args)
+    dev_ms, per_call, kernels = device_ms(fn, *args)
+    plain_ms = time_ms(plain, *args)
+    lib_ms = time_ms(grid_sample_backward_fn(
+        grad_out if m is None else grad_out * m[..., None], (v, fh, fw, c),
+        at, size, align))
+    nbytes, touched, bound_ms, bound_by = gather_backward_bound(
+        GA, grad_out, pix, fh, fw, m is not None)
+    row = dict(what=what, entry=entry, shape=[v, fh, fw, c], points=p,
+               max_abs_err=err, device_ms=dev_ms, kernels_per_call=per_call,
+               event_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bytes=nbytes, touched_pixels=touched,
+               most_taps=most_taps(GA, pix, fh, fw), bound_ms=bound_ms,
+               bound_by=bound_by, share=bound_ms / dev_ms)
+    text = ""
+    if parent is not None:
+        pfn = getattr(parent, fn.__name__)
+        turns = [device_ms(f, *args)[0] for f in (pfn, fn, fn, pfn)]
+        row.update(parent_device_ms=[turns[0], turns[3]],
+                   turns_device_ms=turns[1:3])
+        text = (f"; in turns parent {turns[0]:.4f} / {turns[3]:.4f} ms, this"
+                f" {turns[1]:.4f} / {turns[2]:.4f} ms")
+    log(f"backward check: {what} [{v},{fh},{fw},{c}] x [{v},{p},2] {entry}: "
+        f"max_abs_err {err:.3g}; kernel device {dev_ms:.4f} ms ({per_call:g}"
+        f" kernels/call {kernels}), events {ms:.4f} ms; plain "
+        f"{plain_ms:.4f} ms; grid_sampler_2d_backward {lib_ms:.4f} ms; bound"
+        f" {nbytes} B = {1e3 * bound_ms:.2f} us ({bound_by}), share "
+        f"{bound_ms / dev_ms:.3f}; {touched} pixels touched, "
+        f"{4 * v * p / max(touched, 1):.1f} taps a pixel, at most "
+        f"{row['most_taps']} on one{text}")
+    return row
+
+
+def row_stats(row):
+    """A backward row's timed figures for the kernels line."""
+    return {"ms": row["device_ms"], **{k: row[k] for k in (
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "share",
+        "kernels_per_call")}}
+
+
+def check_backward_edges(GA, dev, g):
+    """Phase 3's edge cases of the tiled backward, each held to its plain
+    twin into a NaN-poisoned block: points on 8x8 tile seams and corners,
+    on the map's last row and column, and outside it, at every channel
+    count of ``EDGE_CHANNELS`` (the 16-byte, 8-byte and scalar routes),
+    on both entries (map pixels; fused, half-pixel, with mask zeros); one
+    view; no points; grad_out 4 and 8 bytes off a 16-byte boundary (the
+    scalar and 8-byte routes). Returns the largest error and the count of
+    checks."""
+    v, fh, fw, p = EDGE_SHAPE
+    h, w = TRAIN_H, TRAIN_W
+    q = p // 4
+
+    def seams(hi):
+        return torch.randint(1, hi, (v, q, 1), generator=g, device=dev) * 8 - 1
+
+    seam = torch.cat([seams(fw // 8), seams(fh // 8)], -1).float()
+    pix = torch.cat([
+        seam + torch.rand((v, q, 2), generator=g, device=dev),  # seams
+        seam,                                                    # corners
+        torch.tensor([fw - 1.0, fh - 1.0], device=dev) - torch.rand(
+            (v, q, 2), generator=g, device=dev) * 1.5,           # last row
+        random_coords(g, dev, v, q, fh, fw) * 1.4 - 10], 1)      # outside
+    # the frame points whose map pixels these are (half-pixel)
+    pts = ((pix + 0.5) * torch.tensor([(w - 1) / fw, (h - 1) / fh],
+                                      device=dev)).contiguous()
+    mask = (torch.rand((v, p), generator=g, device=dev) > 0.3).float()
+    worst, n = 0.0, 0
+    for c in EDGE_CHANNELS:
+        grad_out = torch.randn((v, p, c), generator=g, device=dev)
+        cases = [(grad_out, pix.contiguous(), None), (grad_out, pts, mask),
+                 (grad_out[:1], pts[:1], mask[:1]),
+                 (grad_out[:, :0], pts[:, :0], mask[:, :0])]
+        if c % 4 == 0:
+            flat = torch.randn(v * p * c + 2, generator=g, device=dev)
+            cases += [(flat[k:k + v * p * c].view(v, p, c), pts, mask)
+                      for k in (1, 2)]
+        for go, at, m in cases:
+            worst = max(worst, hold_backward_call(GA, go, at, m, h, w, fh,
+                                                  fw)[0])
+            n += 1
+    log(f"backward edge cases: {n} checks (tile seams and corners, the last "
+        f"row and column, outside the map; c {EDGE_CHANNELS}; one view; no "
+        f"points; grad_out 4 and 8 bytes off), max_abs_err {worst:.3g}, "
+        "every pixel written")
+    return worst, n
+
+
+def check_backward(GA, dev, parent=None):
+    """Phase 3, the backward at the training steps' shapes: random coords
+    (5% outside the map) and, for generalization training's 64-channel
+    pass, the real coords of a training sample's coarse pass and the long
+    bins (``LONG_BIN``), each a timed row (``backward_row``); then the
+    edge cases (``check_backward_edges``). Returns the kernels-line stats
+    of ``BACKWARD_KEY``'s row."""
     g = torch.Generator(device=dev).manual_seed(1)
     stats = {"max_abs_err": 0.0}
     for (what, v, fh, fw, c, p, entries, (h, w), random_mask,
@@ -512,48 +700,28 @@ def check_backward(GA, dev):
         points = random_coords(g, dev, v, p, h, w)
         mask = ((torch.rand((v, p), generator=g, device=dev) > 0.3).float()
                 if random_mask else torch.ones((v, p), device=dev))
-        jobs = [("map pixels", random_coords(g, dev, v, p, fh, fw), None)
-                if e == "map pixels" else ("fused", points, mask)
-                for e in entries]
+        jobs = [("map pixels", grad_out, random_coords(g, dev, v, p, fh, fw),
+                 None) if e == "map pixels" else
+                ("fused", grad_out, points, mask) for e in entries]
         if real:
-            jobs.append(("fused, real coords", *real_training_points(dev)))
-        for entry, at, m in jobs:
-            if m is None:
-                args = (grad_out, at, fh, fw)
-                fn = GA.gather_bilinear_border_backward
-                plain = GA.gather_bilinear_border_backward_ref
-                pix, size, align = at, (fh, fw), True
-            else:
-                args = (grad_out, at, m, h, w, fh, fw)
-                fn = GA.gather_feature_map_backward
-                plain = GA.gather_feature_map_backward_ref
-                pix = GA.feature_pixel_coords(at, h, w, fh, fw, False)
-                size, align = (h, w), False
-            before = GA.BACKWARD_LAUNCHES
-            err = hold_backward(fn(*args), plain(*args))
-            if GA.BACKWARD_LAUNCHES != before + 1:
-                raise RuntimeError("the backward kernel was not launched")
-            ms = time_ms(fn, *args)
-            dev_ms, per_call, kernels = device_ms(fn, *args)
-            plain_ms = time_ms(plain, *args)
-            lib = grid_sample_backward_fn(
-                grad_out if m is None else grad_out * m[..., None],
-                (v, fh, fw, c), at, size, align)
-            lib_ms = time_ms(lib)
-            nbytes, touched, bound_ms, bound_by = gather_backward_bound(
-                GA, grad_out, pix, fh, fw, m is not None)
-            log(f"backward check: {what} [{v},{fh},{fw},{c}] x [{v},{p},2] "
-                f"{entry}: max_abs_err {err:.3g}; kernel device {dev_ms:.4f}"
-                f" ms ({per_call:g} kernels/call {kernels}), events "
-                f"{ms:.4f} ms; plain {plain_ms:.4f} ms; "
-                f"grid_sampler_2d_backward {lib_ms:.4f} ms; bound {nbytes} B"
-                f" ({touched} pixels touched, {4 * v * p / touched:.1f} taps"
-                f" a pixel) = {1e3 * bound_ms:.2f} us ({bound_by}), share "
-                f"{bound_ms / dev_ms:.3f}")
-            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            jobs.append(("fused, real coords", grad_out,
+                         *real_training_points(dev)))
+            exact = torch.randint(-4, 5, (v, p, c), generator=g,
+                                  device=dev).float()
+            for e in entries:
+                at = torch.tensor(LONG_BIN[e], device=dev).expand(
+                    v, p, 2).contiguous()
+                jobs.append((f"{e}, long bin {LONG_BIN[e]}", exact, at,
+                             None if e == "map pixels" else mask))
+        for entry, go, at, m in jobs:
+            row = backward_row(GA, what, entry, go, at, m, h, w, fh, fw,
+                               parent)
+            stats["max_abs_err"] = max(stats["max_abs_err"],
+                                       row["max_abs_err"])
             if (what, entry) == BACKWARD_KEY:
-                stats.update(ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms)
+                stats.update(row_stats(row))
+    worst, _ = check_backward_edges(GA, dev, g)
+    stats["max_abs_err"] = max(stats["max_abs_err"], worst)
     return stats
 
 
@@ -952,7 +1120,26 @@ def profile_step(run_step, what="training"):
                     for name, v in top))
 
 
-def train_phase(GA, dev, root, weights):
+def real_backward_rows(GA, dev, what, captured, size, fh, fw, parent):
+    """A step's captured 64-channel map gathers (coarse, then fine: their
+    points and masks) as timed backward rows (``backward_row``), each on a
+    random grad_out. Returns the rows."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for name, (points, mask) in zip(("coarse", "fine"), captured):
+        v, p, _ = points.shape
+        grad_out = torch.randn((v, p, 64), generator=g, device=dev)
+        rows.append(backward_row(GA, what, f"fused, real coords, {name} pass",
+                                 grad_out, points, mask, *size, fh, fw,
+                                 parent))
+    return rows
+
+
+def keep_points(captured, points, mask):
+    captured.append((points.detach().clone(), mask.detach().clone()))
+
+
+def train_phase(GA, dev, root, weights, parent=None):
     """Phase 8: ``Trainer(cfg).run()`` on the card with the training
     config's fields (``TRAIN_PROFILE``) and these cuts (``TRAIN_CUTS``):
     synthetic sphere scenes in place of the 5-dataset mixture, made anew
@@ -964,8 +1151,11 @@ def train_phase(GA, dev, root, weights):
     64-ch map in each of the two passes; the depth-loss head) and 3
     backward (the 64-ch map twice, the depth head's ray_feats). The loss
     must fall; the validation render runs through ``Trainer.validate``.
-    Returns the phase's gather launches (forward by instantiation, and
-    backward)."""
+    The last step's two 64-ch map gathers (coarse, fine) are kept and
+    timed as backward rows on their real coords (``real_backward_rows``,
+    with ``parent`` as in ``backward_row``). Returns the phase's gather
+    launches (forward by instantiation, and backward)."""
+    from neuray_tpu_torch.models import renderer as R
     from neuray_tpu_torch.train.trainer import Trainer
     cfg = {**TRAIN_PROFILE, **TRAIN_CUTS,
            "output_root": str(root / "build" / "chip_smoke")}
@@ -988,16 +1178,29 @@ def train_phase(GA, dev, root, weights):
             torch.cuda.reset_peak_memory_stats()
         return out
 
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    gather, captured = R.interpolate_feature_map, []
+    fmap = (TRAIN_RFN, TRAIN_H // 4, TRAIN_W // 4, 64)
+
+    def kept_gather(feats, points, mask, *args):
+        if (len(steps) == n_steps - 1 and feats.requires_grad
+                and tuple(feats.shape) == fmap):
+            keep_points(captured, points, mask)
+        return gather(feats, points, mask, *args)
+
     trainer.train_step = timed_step
+    R.interpolate_feature_map = kept_gather
     GA.reset_launches()
-    t0 = time.perf_counter()
-    trainer.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        R.interpolate_feature_map = gather
     launches = dict(GA.LAUNCHES_BY_DTYPE)
     backward = GA.BACKWARD_LAUNCHES
 
-    n_steps = WARMUP_STEPS + TIMED_STEPS
     losses = [s["loss"] for s in steps]
     if len(steps) != n_steps or not np.isfinite(losses).all():
         raise RuntimeError(f"training ran {len(steps)} steps, losses "
@@ -1033,6 +1236,8 @@ def train_phase(GA, dev, root, weights):
         f"psnr_nr_fine {val_psnr:.3f} dB: {' '.join(val[3:])}")
     if not last < first:
         raise RuntimeError(f"the loss did not fall: {first} -> {last}")
+    real_backward_rows(GA, dev, "feats 1/4 res, phase 8's last step",
+                       captured, (TRAIN_H, TRAIN_W), *fmap[1:3], parent)
     batch = trainer.to_device(trainer.train_dataset[TIMED_STEPS])
     profile_step(lambda: trainer.train_step(batch))
     grad_check(trainer, dev, weights)
@@ -1062,7 +1267,7 @@ FT_STEP_GATHERS = {((RFN, H, W, 3), False): 2,
                    ((1, H // 4, W // 4, 32), True): 2}
 
 
-def ft_phase(GA, R, dev, work, weights):
+def ft_phase(GA, R, dev, work, weights, parent=None):
     """Phase 9: ``FtTrainer(cfg).run()`` on the card with the finetuning
     config's fields (``FT_PROFILE``) and these cuts (``FT_CUTS``): a
     NeRF-synthetic sphere fabricated under ``work`` (100 train views at
@@ -1077,8 +1282,10 @@ def ft_phase(GA, R, dev, work, weights):
     memory against a reckoning of the state; the loss; the validation's
     psnr_nr_fine >= ``PSNR_FLOOR``; that the views a step selected (and
     only those) changed their ray_feats; one profiled step; and one step's
-    gradients card vs CPU (``ft_grad_check``). Returns the phase's gather
-    launches (forward by instantiation, and backward)."""
+    gradients card vs CPU (``ft_grad_check``). The last step's two 64-ch
+    map gathers are timed as backward rows on their real coords
+    (``real_backward_rows``). Returns the phase's gather launches (forward
+    by instantiation, and backward) and the fine pass's row."""
     from neuray_tpu_torch.data import database as DB
     from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
     from neuray_tpu_torch.train.ft_trainer import FtTrainer
@@ -1128,12 +1335,15 @@ def ft_phase(GA, R, dev, work, weights):
             torch.cuda.reset_peak_memory_stats()
         return out
 
-    gather = R.interpolate_feature_map
+    gather, captured = R.interpolate_feature_map, []
+    fmap = (RFN, H // 4, W // 4, 64)
 
     def counted_gather(feats, *args):
         if counting:
             key = (tuple(feats.shape), feats.requires_grad)
             counting[-1][key] = counting[-1].get(key, 0) + 1
+            if len(steps) == FT_STEPS - 1 and key == (fmap, True):
+                keep_points(captured, *args[:2])
         return gather(feats, *args)
 
     views_psnr = []
@@ -1222,11 +1432,13 @@ def ft_phase(GA, R, dev, work, weights):
     if not val_psnr >= PSNR_FLOOR:
         raise RuntimeError(f"finetuning validation psnr_nr_fine "
                            f"{val_psnr:.3f} dB < {PSNR_FLOOR}")
+    _, fine = real_backward_rows(GA, dev, "feats 1/4 res, phase 9's last "
+                                 "step", captured, (H, W), *fmap[1:3], parent)
     que_i, ref_idx = ft.sample_train_indices(np.random.RandomState(0))
     que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(0))
     profile_step(lambda: train_step((ref_idx, que, que_i)), "finetuning")
     ft_grad_check(dev, work, cfg)
-    return launches, backward
+    return launches, backward, fine
 
 
 def ft_grad_check(dev, work, cfg):
@@ -1298,7 +1510,24 @@ def ft_grad_check(dev, work, cfg):
         f" the fine depths differ by up to {moved:.3g}")
 
 
+def load_gather(root):
+    """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
+    module of its own (it builds its kernel under root/build)."""
+    import importlib.util
+    path = Path(root).resolve() / "neuray_tpu_torch" / "ops" / "gather.py"
+    spec = importlib.util.spec_from_file_location(
+        f"gather_{abs(hash(str(path)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="a checkout of an earlier commit: time "
+                    "its backward beside this one's on every backward row")
+    a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -1324,9 +1553,14 @@ def main():
     GA.load_library()
     log(f"build: gather_bilinear_border.cu in "
         f"{time.perf_counter() - t0:.2f} s")
+    parent = None
+    if a.parent:
+        parent = load_gather(a.parent)
+        parent.load_library()
+        log(f"parent: {a.parent}'s gather built")
 
     _, kernel_stats = check_kernel(GA, dev)
-    backward_stats = check_backward(GA, dev)
+    backward_stats = check_backward(GA, dev, parent)
 
     # ---- full frame ----
     rng = np.random.RandomState(0)
@@ -1388,12 +1622,14 @@ def main():
     counted.append(fast_profile(R, GA, renderer, ref, que, gt, img))
     counted += bench_profile(R, GA, renderer, ref, que, gt)
     train_launches, backward_launches = train_phase(
-        GA, dev, Path(__file__).resolve().parent, weights)
+        GA, dev, Path(__file__).resolve().parent, weights, parent)
     counted.append(train_launches)
-    ft_launches, ft_backward = ft_phase(
+    ft_launches, ft_backward, ft_fine = ft_phase(
         GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
-        weights)
+        weights, parent)
     counted.append(ft_launches)
+    backward_stats["max_abs_err"] = max(backward_stats["max_abs_err"],
+                                        ft_fine["max_abs_err"])
 
     source = "neuray_tpu_torch/csrc/gather_bilinear_border.cu"
     log(json.dumps({"kernels": [{
@@ -1403,7 +1639,11 @@ def main():
         **kernel_stats[k]} for k in ("f32", "bf16", "u8")] + [{
         "name": "gather_bilinear_border_backward_f32", "route": "cuda",
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
-        "launches": backward_launches + ft_backward, **backward_stats}]}))
+        "launches": backward_launches + ft_backward, **backward_stats,
+        "real_ft_fine": {"shape": ft_fine["shape"],
+                         "points": ft_fine["points"],
+                         "max_abs_err": ft_fine["max_abs_err"],
+                         **row_stats(ft_fine)}}]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

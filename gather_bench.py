@@ -35,7 +35,6 @@ Every number names the card (``nvidia-smi`` name and power limit).
 Results print one line each and, with ``--out``, go to a JSON file.
 """
 import argparse
-import importlib.util
 import json
 import subprocess
 import sys
@@ -52,17 +51,6 @@ ROOT = Path(__file__).resolve().parent
 
 def log(*args):
     print(*args, flush=True)
-
-
-def load_gather(root):
-    """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
-    module of its own (it builds its kernel under root/build)."""
-    path = Path(root) / "neuray_tpu_torch" / "ops" / "gather.py"
-    spec = importlib.util.spec_from_file_location(
-        f"gather_{abs(hash(str(path)))}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def host_us(fn, *args, n=500):
@@ -426,7 +414,7 @@ def main():
         else:
             parent = None
             if a.parent:
-                parent = load_gather(a.parent)
+                parent = CS.load_gather(a.parent)
                 parent.load_library()
             result["parent"] = a.parent
             result["rows"] = measure(GA, parent, dev)

@@ -18,12 +18,13 @@ not take raises):
   map pixels as ``feature_pixel_coords`` does, the gather (u8 with a
   dequant) and the projection mask, in one launch.
 An f32 map that requires grad (training) goes through ``_GatherF32``, a
-``torch.autograd.Function`` whose backward is the scatter-add kernel
-(``gather_bilinear_border_backward``, ``gather_feature_map_backward``;
-on CPU tensors their plain twins). Gradients reach the map only: the
-coordinates and the mask are data in training (the fine depths come from
-a detached hit_prob), so a coords or mask tensor that requires grad, or
-a bf16 or u8 map that does, raises.
+``torch.autograd.Function`` whose backward is the tiled scatter-add
+(``gather_bilinear_border_backward``, ``gather_feature_map_backward``:
+the points binned by map tile, each tile summed in shared memory and
+written to the map; on CPU tensors their plain twins). Gradients reach the map
+only: the coordinates and the mask are data in training (the fine depths
+come from a detached hit_prob), so a coords or mask tensor that requires
+grad, or a bf16 or u8 map that does, raises.
 The kernels are compiled with nvcc at first use, from the source in this
 repository, into ``build/neuray_tpu_torch/`` keyed by a hash of the
 source, and loaded with ctypes.
@@ -260,29 +261,32 @@ def load_library() -> dict:
     for name in (*_NAMES.values(), "f32_backward"):
         fn = getattr(lib, f"gather_border_{name}")
         # forward: map, coords, mask, scale, offset, out; backward:
-        # grad_out, coords, mask, grad_map; then v, p, fh, fw, c, frame,
-        # h, w, n, vec; stream
-        pointers = 4 if name == "f32_backward" else 6
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 10
+        # grad_out, coords, mask, grad_map, scratch; then v, p, fh, fw, c,
+        # frame, h, w and the forward's route n, vec; stream
+        backward = name == "f32_backward"
+        fn.argtypes = ([ctypes.c_void_p] * (5 if backward else 6)
+                       + [ctypes.c_int] * (8 if backward else 10)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
+    # the backward's scratch in int32s for v, p, fh, fw, c (-1: not taken)
+    fn = lib.gather_border_f32_backward_scratch
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int64
+    fns["f32_backward_scratch"] = fn
     return fns
 
 
-def _route(*tensors: torch.Tensor) -> tuple[int, bool]:
-    """The kernel's path for the first tensor (the map; the backward's
-    grad_out, with its grad_map): (elements a lane loads, whether as one
-    vector). 16-byte vectors where a pixel's channels are a whole number
-    of them and every tensor is aligned to one, else 8-byte vectors
-    likewise, else one lane a channel with scalar loads (chosen by
+def _route(feats: torch.Tensor) -> tuple[int, bool]:
+    """The forward kernel's path for the map: (elements a lane loads,
+    whether as one vector). 16-byte vectors where a pixel's channels are a
+    whole number of them and the map is aligned to one, else 8-byte
+    vectors likewise, else one lane a channel with scalar loads (chosen by
     ``gather_bench.py --routes``: one thread a point for c = 3 or 4 was
     slower on the render's coords)."""
-    size = tensors[0].element_size()
-    c = tensors[0].shape[-1]
+    size = feats.element_size()
+    c = feats.shape[-1]
     for vec in (16, 8):
-        if (c * size) % vec == 0 and all(t.data_ptr() % vec == 0
-                                         for t in tensors):
+        if (c * size) % vec == 0 and feats.data_ptr() % vec == 0:
             return vec // size, True
     return 1, False
 
@@ -362,6 +366,17 @@ def _check_backward(grad_out: torch.Tensor, coords: torch.Tensor, fh: int,
     return _check_points(grad_out, v, fh, fw, c, coords, mask)
 
 
+def _backward_scratch(v: int, p: int, fh: int, fw: int, c: int) -> int:
+    """The int32s of scratch the backward kernels need for a [v, fh, fw, c]
+    map and v x p points; raises where the library does not take the
+    shapes (``gather_border_f32_backward_scratch`` says which)."""
+    n = load_library()["f32_backward_scratch"](v, p, fh, fw, c)
+    if n < 0:
+        raise ValueError(f"the backward kernel does not take a [{v}, {fh}, "
+                         f"{fw}, {c}] map at {v} x {p} points")
+    return n
+
+
 def _needs_grad(feats: torch.Tensor) -> bool:
     return feats.requires_grad and torch.is_grad_enabled()
 
@@ -408,19 +423,22 @@ def _launch(feats: torch.Tensor, coords: torch.Tensor,
 def _launch_backward(grad_out: torch.Tensor, coords: torch.Tensor,
                      mask: torch.Tensor | None, fh: int, fw: int, frame: int,
                      h: int, w: int) -> torch.Tensor:
-    """Zero the map's gradient and launch the backward kernel into it on
-    the current stream, counted in ``BACKWARD_LAUNCHES``."""
+    """The backward on the current stream, counted in
+    ``BACKWARD_LAUNCHES``: the map's gradient from ``torch.empty`` (the
+    kernels write every element, zeros included) and the bins' int32
+    scratch."""
     global BACKWARD_LAUNCHES
     v, p, c = grad_out.shape
-    grad_map = torch.zeros((v, fh, fw, c), device=grad_out.device)
-    if grad_out.numel() == 0:
+    grad_map = torch.empty((v, fh, fw, c), device=grad_out.device)
+    if grad_map.numel() == 0:
         return grad_map
-    n, vec = _route(grad_out, grad_map)
+    scratch = torch.empty(_backward_scratch(v, p, fh, fw, c),
+                          dtype=torch.int32, device=grad_out.device)
     index = grad_out.device.index
     _call("f32_backward", index, (
         grad_out.data_ptr(), coords.data_ptr(),
         None if mask is None else mask.data_ptr(), grad_map.data_ptr(),
-        v, p, fh, fw, c, frame, h, w, n, vec,
+        scratch.data_ptr(), v, p, fh, fw, c, frame, h, w,
         torch._C._cuda_getCurrentRawStream(index)))
     BACKWARD_LAUNCHES += 1
     return grad_map
@@ -453,11 +471,16 @@ def _frame(fh: int, fw: int, h: int, w: int) -> int:
 
 class _GatherF32(torch.autograd.Function):
     """An f32 gather whose map takes a gradient (``_gather``'s entries):
-    forward and backward are one kernel launch each on CUDA tensors, the
-    plain twins on CPU tensors."""
+    on CUDA tensors the forward is one kernel launch and the backward the
+    tiled backward (a memset and three kernels, counted once), on CPU
+    tensors the plain twins. On CUDA tensors a map the backward kernels
+    do not take raises here, not in ``loss.backward()``."""
 
     @staticmethod
     def forward(ctx, feats, coords, mask, h, w):
+        if feats.is_cuda:
+            _backward_scratch(feats.shape[0], coords.shape[1],
+                              *feats.shape[1:])
         ctx.save_for_backward(coords, mask)
         ctx.sizes = (h, w, *feats.shape[1:3])
         return _gather(feats, coords, mask, h, w, None, not feats.is_cuda)
@@ -525,8 +548,9 @@ def gather_bilinear_border_backward(grad_out: torch.Tensor,
                                     fw: int) -> torch.Tensor:
     """The gradient of ``gather_bilinear_border`` with respect to its f32
     map: grad_out [v, p, c] f32; coords [v, p, 2] f32 map pixels ->
-    [v, fh, fw, c] f32. CUDA tensors: one launch of the backward kernel
-    into a zeroed map; CPU tensors: ``gather_bilinear_border_backward_ref``.
+    [v, fh, fw, c] f32. CUDA tensors: the tiled backward (one memset of
+    its bins' counts and three kernels, every pixel written by them);
+    CPU tensors: ``gather_bilinear_border_backward_ref``.
     """
     if _check_backward(grad_out, coords, fh, fw):
         return gather_bilinear_border_backward_ref(grad_out, coords, fh, fw)
@@ -538,8 +562,8 @@ def gather_feature_map_backward(grad_out: torch.Tensor, points: torch.Tensor,
                                 fw: int) -> torch.Tensor:
     """The gradient of ``gather_feature_map`` with respect to its f32 map
     [v, fh, fw, c]: grad_out [v, p, c] f32; points [v, p, 2] f32 in the
-    (h, w) frame; mask [v, p] f32 -> [v, fh, fw, c] f32. CUDA tensors: one
-    launch of the backward kernel into a zeroed map; CPU tensors:
+    (h, w) frame; mask [v, p] f32 -> [v, fh, fw, c] f32. CUDA tensors: the
+    tiled backward, as ``gather_bilinear_border_backward``; CPU tensors:
     ``gather_feature_map_backward_ref``."""
     if _check_backward(grad_out, points, fh, fw, mask):
         return gather_feature_map_backward_ref(grad_out, points, mask, h, w,

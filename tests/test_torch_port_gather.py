@@ -12,6 +12,8 @@ bf16 gather returns f32 (its weights promote), so its result is rounded
 to bf16, the dtype the bf16 route carries. u8: the dequantized JAX
 gather of the codes within one bf16 ulp.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -245,15 +247,41 @@ def test_gradient_rules():
     assert out.shape == (2, 4, 4, 8) and not out.any()
 
 
-@pytest.mark.parametrize("c,misaligned,route", [
-    (64, 0, (4, True)), (32, 0, (4, True)), (6, 0, (2, True)),
-    (3, 0, (1, False)), (64, 4, (1, False)), (64, 8, (2, True))])
-def test_backward_route(c, misaligned, route):
-    """The backward's lanes take 16-byte vectors of grad_out and of the
-    zeroed gradient where c and both alignments allow, else 8, else one
-    channel a lane."""
+def brute_force_backward(grad_out, coords, fh, fw):
+    """The map's gradient in float64, one point and tap at a time."""
+    v, p, c = grad_out.shape
+    out = np.zeros((v, fh, fw, c))
+    for i in range(v):
+        for j in range(p):
+            x = min(max(float(coords[i, j, 0]), 0.0), fw - 1.0)
+            y = min(max(float(coords[i, j, 1]), 0.0), fh - 1.0)
+            x0, y0 = int(min(np.floor(x), fw - 2)), int(min(np.floor(y), fh - 2))
+            tx, ty = x - x0, y - y0
+            for dy, wy in ((0, 1 - ty), (1, ty)):
+                for dx, wx in ((0, 1 - tx), (1, tx)):
+                    out[i, y0 + dy, x0 + dx] += grad_out[i, j] * wy * wx
+    return out
+
+
+@pytest.mark.parametrize("c,misaligned,fh,fw", [
+    (64, 0, 5, 6), (32, 0, 5, 6), (6, 0, 5, 6), (3, 0, 5, 6), (64, 4, 5, 6),
+    (64, 8, 5, 6), (128, 0, 5, 6), (67, 4, 5, 6), (257, 4, 5, 6),
+    (1, 0, 1030, 1030)])
+def test_backward_route(c, misaligned, fh, fw):
+    """On CPU tensors the backward entries take any channel count, any
+    alignment of grad_out and any map size (also those the CUDA kernels
+    refuse: more than 256 channels, more than 12288 8x8 tiles a view) and
+    equal a float64 scatter. The kernels' own routes and alignments are
+    held on the card (``test_backward_kernel_matches_plain_on_cuda``:
+    grad_out 4 and 8 bytes off a 16-byte boundary)."""
+    rng = np.random.RandomState(c + misaligned)
     grad_out = offset_view((2, 7, c), torch.float32, misaligned)
-    assert GA._route(grad_out, torch.zeros(2, 3, 5, c)) == route
+    grad_out.copy_(t(rng.randn(2, 7, c).astype(np.float32)))
+    coords = t((rng.rand(2, 7, 2) * [fw + 3, fh + 2] - 1).astype(np.float32))
+    want = brute_force_backward(grad_out.numpy(), coords.numpy(), fh, fw)
+    np.testing.assert_allclose(
+        GA.gather_bilinear_border_backward(grad_out, coords, fh, fw).numpy(),
+        want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 
 # ---------------- the wrapper's checks and routes ----------------
@@ -320,18 +348,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 # ---------------- the bound's byte count ----------------
 
-def brute_force_pixels(coords, fh, fw):
-    """Distinct tap pixels, one point at a time, in float64."""
-    total = 0
+def brute_force_taps(coords, fh, fw):
+    """Per view, the taps on each pixel, one point at a time, in float64."""
+    counts = []
     for view in coords.astype(np.float64):
-        seen = set()
+        seen = collections.Counter()
         for x, y in view:
             x = min(max(x, 0.0), fw - 1.0)
             y = min(max(y, 0.0), fh - 1.0)
-            x0, y0 = int(min(np.floor(x), fw - 2)), int(min(np.floor(y), fh - 2))
-            seen |= {(y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)}
-        total += len(seen)
-    return total
+            x0 = int(min(np.floor(x), fw - 2))
+            y0 = int(min(np.floor(y), fh - 2))
+            seen.update([(y0 + dy, x0 + dx) for dy in (0, 1) for dx in (0, 1)])
+        counts.append(seen)
+    return counts
+
+
+def brute_force_pixels(coords, fh, fw):
+    """Distinct tap pixels, summed over the views."""
+    return sum(len(seen) for seen in brute_force_taps(coords, fh, fw))
 
 
 @pytest.mark.parametrize("v,fh,fw,p", [(1, 2, 2, 5), (2, 5, 7, 40),
@@ -359,6 +393,29 @@ def test_gather_bound_counts_each_byte_once(dtype, masked):
                       + (2 * 12 * 4 if dtype == torch.uint8 else 0))
     assert by == "bytes"
     assert bound_ms == pytest.approx(1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_backward_bound_counts_each_byte_once(masked):
+    """The backward's least work: grad_out, the coordinates and the mask
+    read once and the whole [v, fh, fw, c] gradient written once, however
+    many taps land on a pixel and whether or not a pixel is touched (no
+    zero-fill counted on top); the touched pixels are reported beside
+    it, and the most taps on one pixel."""
+    rng = np.random.RandomState(6)
+    v, p, fh, fw, c = 2, 50, 6, 9, 12
+    pix = t((rng.rand(v, p, 2) * [11, 8] - 1).astype(np.float32))
+    pix[1, :20] = t(np.float32([3.5, 2.5]))      # 20 points on one anchor
+    nbytes, touched, bound_ms, by = chip_smoke.gather_backward_bound(
+        GA, torch.zeros(v, p, c), pix, fh, fw, masked)
+    assert touched == brute_force_pixels(pix.numpy(), fh, fw)
+    assert nbytes == (v * p * c * 4 + v * p * 8 + (v * p * 4 if masked else 0)
+                      + v * fh * fw * c * 4)
+    assert by == "bytes"
+    assert bound_ms == pytest.approx(1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S)
+    most = max(max(seen.values()) for seen in brute_force_taps(
+        pix.numpy(), fh, fw))
+    assert chip_smoke.most_taps(GA, pix, fh, fw) == most >= 20
 
 
 # ---------------- on the card: every kernel path ----------------
@@ -436,37 +493,79 @@ def test_fused_entry_matches_plain_on_cuda(cuda_device, scale):
             assert (out.float()[mask == 0] == 0).all()
 
 
+def _edge_pixels(g, dev, v, p, fh, fw):
+    """Map pixels [v, p, 2]: a quarter each on 8x8 tile seams (the taps
+    straddle two or four tiles), on tile corners, on the map's last row
+    and column, and anywhere with a 5-pixel margin outside the map."""
+    q = -(-p // 4)
+
+    def seams(n):
+        return torch.randint(1, n // 8 + 1, (v, q, 1), generator=g,
+                             device=dev) * 8 - 1
+
+    def rand(*scale):
+        return torch.rand((v, q, 2), generator=g, device=dev) * torch.tensor(
+            scale, device=dev)
+
+    seam = torch.cat([seams(fw), seams(fh)], -1).float()
+    last = torch.tensor([fw - 1.0, fh - 1.0], device=dev) - rand(1.5, 1.5)
+    return torch.cat([seam + rand(1, 1), seam, last,
+                      rand(fw + 10.0, fh + 10.0) - 5], 1)[:, :p].contiguous()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 32, 64])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 8, 32, 64, 67])
 def test_backward_kernel_matches_plain_on_cuda(cuda_device, c):
-    """The scatter-add kernel on each route (map pixels; the fused entry,
-    align_corners and half-pixel, with mask zeros), 16-byte aligned and
-    4 bytes off, at a point count no block divides: each element within
-    1e-5 relative and 1e-6 of the largest absolute (the atomics add in
-    another order on every run); one launch each, counted on its own."""
-    g = torch.Generator(device=cuda_device).manual_seed(c)
+    """The tiled backward on each route (map pixels; the fused entry,
+    align_corners and half-pixel, with mask zeros), grad_out 16-byte
+    aligned and 4 and 8 bytes off (the scalar and 8-byte routes), at a
+    point count no block divides, the points on 8x8 tile seams and
+    corners, on the map's last row and column and outside it; then one
+    view, no points, and the long bin: every point of a view on one pixel
+    at a corner of four tiles, with integer grad_out (every order of the
+    sums is exact). Each call into a block that held NaN
+    (``chip_smoke.poisoned``: every pixel written), each element within
+    1e-5 relative and 1e-6 of the largest absolute (the sums' order
+    differs); one backward launch each, counted on its own."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(c)
     h, w, p = 48, 64, 3333
+
+    def check(grad, pts, mask, fh, fw):
+        if mask is None:
+            args = (grad, pts, fh, fw)
+            fn = GA.gather_bilinear_border_backward
+            plain = GA.gather_bilinear_border_backward_ref
+        else:
+            args = (grad, pts, mask, h, w, fh, fw)
+            fn = GA.gather_feature_map_backward
+            plain = GA.gather_feature_map_backward_ref
+        before, fwd = GA.BACKWARD_LAUNCHES, GA.LAUNCHES
+        out = chip_smoke.poisoned(fn, *args)
+        assert (GA.BACKWARD_LAUNCHES, GA.LAUNCHES) == (before + 1, fwd)
+        want = plain(*args)
+        torch.testing.assert_close(out, want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+
     for scale, fused in ((1, False), (1, True), (4, True)):
         fh, fw = h // scale, w // scale
-        pts = torch.rand((4, p, 2), generator=g, device=cuda_device)
-        pts = pts * torch.tensor([w + 10.0, h + 10.0], device=cuda_device) - 5
-        mask = (torch.rand((4, p), generator=g, device=cuda_device)
-                > 0.3).float()
-        for misalign in (0, 4):
-            grad = _map(g, cuda_device, torch.float32, (4, p, c), misalign)
-            before, fwd = GA.BACKWARD_LAUNCHES, GA.LAUNCHES
-            if fused:
-                args = (grad, pts, mask, h, w, fh, fw)
-                out = GA.gather_feature_map_backward(*args)
-                ref = GA.gather_feature_map_backward_ref(*args)
-            else:
-                out = GA.gather_bilinear_border_backward(grad, pts, fh, fw)
-                ref = GA.gather_bilinear_border_backward_ref(grad, pts, fh,
-                                                             fw)
-            torch.cuda.synchronize()
-            assert (GA.BACKWARD_LAUNCHES, GA.LAUNCHES) == (before + 1, fwd)
-            torch.testing.assert_close(out, ref, rtol=1e-5,
-                                       atol=1e-6 * ref.abs().max().item())
+        pix = _edge_pixels(g, dev, 4, p, fh, fw)
+        # the frame points whose map pixels these are
+        pts = pix if scale == 1 else ((pix + 0.5) * torch.tensor(
+            [(w - 1) / fw, (h - 1) / fh], device=dev)).contiguous()
+        mask = (torch.rand((4, p), generator=g, device=dev) > 0.3).float()
+        for misalign in (0, 4, 8):
+            grad = _map(g, dev, torch.float32, (4, p, c), misalign)
+            check(grad, pts, mask if fused else None, fh, fw)
+    grad = _map(g, dev, torch.float32, (4, p, c))
+    check(grad[:1], pts[:1], mask[:1], fh, fw)
+    check(grad[:, :0], pts[:, :0], mask[:, :0], fh, fw)
+    # (7.5, 7.5) and, in the (48, 64) frame, (31.5, 23.5): pixel (31.5,
+    # 23.5) of the map, anchor (31, 23); weights 0.5
+    exact = torch.randint(-4, 5, (2, p, c), generator=g, device=dev).float()
+    for at, m in (((7.5, 7.5), None), ((31.5, 23.5), mask[:2])):
+        check(exact, torch.tensor(at, device=dev).expand(2, p, 2).contiguous(),
+              m, h, w)
 
 
 @pytest.mark.cuda
@@ -491,3 +590,19 @@ def test_autograd_through_the_kernels_on_cuda(cuda_device):
         grads.append(f.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5,
                                atol=1e-6 * grads[1].abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 4, 257), (1, 1040, 1040, 1)])
+def test_backward_refuses_at_the_forward_on_cuda(cuda_device, shape):
+    """A CUDA f32 map that requires grad and that the backward kernels do
+    not take (more than 256 channels; more than 12288 8x8 tiles a view)
+    raises at the forward, not in ``loss.backward()``; without grad the
+    forward kernel takes it."""
+    feats = torch.zeros(shape, device=cuda_device)
+    pts = torch.zeros((1, 3, 2), device=cuda_device)
+    mask = torch.ones((1, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="backward kernel does not take"):
+        GA.gather_feature_map(feats.requires_grad_(), pts, mask, 8, 8)
+    assert GA.gather_feature_map(feats.detach(), pts, mask, 8, 8).shape == (
+        1, 3, shape[-1])
