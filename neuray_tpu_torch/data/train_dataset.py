@@ -1,7 +1,8 @@
 """Training datasets. The synthetic sphere scenes in the train-step schema
 (a numpy copy of ``neuray_tpu/data/train_dataset.py:
 SyntheticRendererDataset``, the same arrays for the same index), built on
-the port's ``data/synthetic.py``. The real-data ``GeneralRendererDataset``
+the port's ``data/synthetic.py``; and the cost-volume source-view wiring
+``build_src_imgs_info_select``. The real-data ``GeneralRendererDataset``
 is not ported yet."""
 from __future__ import annotations
 
@@ -9,7 +10,31 @@ from typing import Any, Dict
 
 import numpy as np
 
+from neuray_tpu_torch.data.imgs_info import build_imgs_info
 from neuray_tpu_torch.data.synthetic import make_query, make_sphere_scene
+from neuray_tpu_torch.data.view_select import compute_nearest_camera_indices
+
+
+def build_src_imgs_info_select(database, ref_ids, ref_ids_all,
+                               cost_volume_nn_num: int,
+                               pad_interval: int = -1):
+    """One imgs_info over the union of the selected ref views and each
+    one's ``cost_volume_nn_num`` nearest views among ref_ids_all (itself
+    left out), as the cost-volume init net takes them (reference
+    train_dataset.py:44-64). Returns (the union's imgs_info, ref_cv_idx
+    [rfn, nn] the source views' indices into the union, ref_real_idx
+    [rfn] the ref views')."""
+    order = compute_nearest_camera_indices(database, ref_ids, ref_ids_all)
+    src_ids = np.asarray(ref_ids_all)[order[:, 1:1 + cost_volume_nn_num]]
+    sel_ids = np.asarray(ref_ids)
+    union_ids = np.unique(np.concatenate([src_ids.ravel(), sel_ids]))
+    # np.unique sorts, so a view's place in the union is a searchsorted hit
+    ref_real_idx = np.searchsorted(union_ids, sel_ids)
+    ref_cv_idx = np.searchsorted(union_ids, src_ids)
+    is_aligned = not database.database_name.startswith("space")
+    union_info = build_imgs_info(database, list(union_ids), pad_interval,
+                                 is_aligned, replace_none_depth=True)
+    return union_info, ref_cv_idx, ref_real_idx
 
 
 class SyntheticRendererDataset:

@@ -66,20 +66,60 @@ class Dense(ComputeCast, nn.Linear):
 
 
 class Conv(ComputeCast, nn.Conv2d):
-    """``nn.Conv2d`` (no padding) with a compute dtype (flax
-    ``nn.Conv(dtype=)``)."""
+    """``nn.Conv2d`` (zero padding ``padding``, none by default) with a
+    compute dtype (flax ``nn.Conv(dtype=)``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, bias: bool = True,
-                 dtype: torch.dtype | None = None):
-        super().__init__(in_ch, out_ch, kernel_size, stride, bias=bias)
+                 dtype: torch.dtype | None = None, padding: int = 0):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is None:
-            return F.conv2d(x, self.weight, self.bias, self.stride)
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            self.padding)
         return F.conv2d(x.to(self.compute_dtype), self.cast_param("weight"),
-                        self.cast_param("bias"), self.stride)
+                        self.cast_param("bias"), self.stride, self.padding)
+
+
+class Conv3d(ComputeCast, nn.Conv3d):
+    """``nn.Conv3d`` (NCDHW, zero padding) with a compute dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, bias: bool = False,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding,
+                         bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.conv3d(x.to(self.compute_dtype), self.cast_param("weight"),
+                        self.cast_param("bias"), self.stride, self.padding)
+
+
+class ConvTranspose3d(ComputeCast, nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d(k3, s2, p1, output_padding=1)``, no bias, with
+    a compute dtype: each spatial size doubles. It is the JAX package's
+    VALID ``nn.ConvTranspose(transpose_kernel=True)`` cropped to
+    [1 : 2i + 1] (``neuray_tpu/models/mvsnet.py: _DeconvBn``)."""
+
+    def __init__(self, in_ch: int, out_ch: int,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_ch, out_ch, 3, 2, 1, output_padding=1,
+                         bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.conv_transpose3d(x.to(self.compute_dtype),
+                                  self.cast_param("weight"), None,
+                                  self.stride, self.padding,
+                                  self.output_padding)
 
 
 class InstanceNorm(nn.Module):

@@ -1,8 +1,9 @@
 """Per-scene finetuning (port of ``neuray_tpu/models/ft.py``; reference
 network/renderer.py:331-547, NeuralRayFtRenderer): the per-view raw
 visibility features G' become trainable, initialized from a
-generalization model's depth init net (or drawn at random), and the
-renderer's modules are finetuned with them on one scene.
+generalization model's init net, depth or cost volume (or drawn at
+random), and the renderer's modules are finetuned with them on one
+scene.
 
 ``FtRenderer`` is an ``nn.Module`` holding the renderer ``net`` (no init
 net) and one parameter ``ray_feats`` [N, fh, fw, c] for the scene's N
@@ -130,10 +131,10 @@ class FtRenderer(nn.Module):
         config as a dict: the card's machine has no YAML reader): every
         module but the init net from that model's checkpoint
         (``load_gen_state`` under ``output_root``), ray_feats from its
-        init net (``init_ray_feats_from_gen``). Without: ray_feats
-        [N, *ray_feats_res, ray_feats_dim] normal from a generator seeded
-        ``seed`` and the modules from flax's initializers
-        (``init_like_flax``) under the same seed."""
+        init net, depth or cost volume (``init_ray_feats_from_gen``).
+        Without: ray_feats [N, *ray_feats_res, ray_feats_dim] normal from
+        a generator seeded ``seed`` and the modules from flax's
+        initializers (``init_like_flax``) under the same seed."""
         gen_cfg = self.cfg["gen_cfg"]
         if gen_cfg is None:
             fh, fw = self.cfg["ray_feats_res"]
@@ -149,9 +150,6 @@ class FtRenderer(nn.Module):
             raise NotImplementedError(
                 "gen_cfg as a path needs a YAML reader, which is not ported "
                 "yet (ROADMAP item 7): pass the parsed config")
-        if gen_cfg.get("init_net_type", "depth") == "cost_volume":
-            raise NotImplementedError("ray features from the cost-volume "
-                                      "init net (ROADMAP item 10)")
         state = load_gen_state(self.cfg["output_root"], gen_cfg["name"])
         with torch.random.fork_rng(devices=[]):
             gen = NeurayRenderer(RenderConfig.from_cfg(gen_cfg))
@@ -163,13 +161,29 @@ class FtRenderer(nn.Module):
     @torch.no_grad()
     def init_ray_feats_from_gen(self, gen: NeurayRenderer) -> torch.Tensor:
         """Each view's raw visibility features G' from the gen model's
-        depth init net run on the view's ``init_view_num`` nearest views,
-        itself first, keeping the first map -> [N, h/4, w/4, 32]."""
-        depth = torch.from_numpy(self.ref_info["depth"]).to(self.device)
+        init net (reference renderer.py:401-434, 446-450) -> [N, h/4,
+        w/4, 32]: the depth init net on the view's ``init_view_num``
+        nearest views, itself first, keeping the first map; or the
+        cost-volume init net on the view alone, its
+        ``init_src_view_num`` nearest other views the source views
+        (``nn_ids`` = arange), at eval size (800x800 views through
+        MVSNet at 640x640)."""
+        by_cv = gen.cfg.init_net_type == "cost_volume"
+        if not by_cv:
+            depth = torch.from_numpy(self.ref_info["depth"]).to(self.device)
+        src_num = self.cfg["init_src_view_num"]
+        nn_ids = torch.arange(src_num, device=self.device)[None]
         feats = []
         for i, ref_id in enumerate(self.ref_ids):
             nearest = self.ref_dist_idx[i]
             assert self.ref_ids[nearest[0]] == ref_id
+            if by_cv:
+                ref = self._slice_ref(torch.tensor([i], device=self.device))
+                ref["nn_ids"] = nn_ids
+                src = self._slice_ref(torch.from_numpy(
+                    nearest[1:1 + src_num]).to(self.device))
+                feats.append(gen.initialize_ray_feats(ref, src)[0])
+                continue
             sel = torch.from_numpy(
                 nearest[:self.cfg["init_view_num"]]).to(self.device)
             ref = self._slice_ref(sel)

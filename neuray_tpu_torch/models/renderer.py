@@ -2,13 +2,15 @@
 ``neuray_tpu/models/renderer.py``): the exact coarse+fine render and the
 probe-driven eval drivers.
 
-Per scene, ``encode_ref`` runs the depth init net, the image encoder and
-the vis encoder once and packs ``[ray_feats | img_feats]`` into one
-64-channel map. Per ray chunk, ``NeurayRenderer.render_chunk`` samples
-depths, projects every sample into every reference view, gathers rgb
-and features (``ops.gather`` kernels on a CUDA tensor), decodes the
-visibility mixture, aggregates across views and composites; then the
-same again at importance-resampled fine depths. ``render_full`` runs
+Per scene, ``encode_ref`` runs the init net (the depth init net, or the
+cost-volume init net on the ref views and their ``src`` views), the
+image encoder and the vis encoder once and packs ``[ray_feats |
+img_feats]`` into one 64-channel map. Per ray chunk,
+``NeurayRenderer.render_chunk`` samples depths, projects every sample
+into every reference view, gathers rgb and features (``ops.gather``
+kernels on a CUDA tensor), decodes the visibility mixture, aggregates
+across views and composites; then the same again at importance-resampled
+fine depths. ``render_full`` runs
 the encode and the chunk loop under ``torch.inference_mode()``.
 
 ``NeurayRenderer.forward`` is the training forward on one ray chunk,
@@ -60,6 +62,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from neuray_tpu_torch.models.agg_net import DefaultAggregationNet
+from neuray_tpu_torch.models.cost_volume import CostVolumeInitNet
 from neuray_tpu_torch.models.dist_decoder import MixtureLogisticsDistDecoder
 from neuray_tpu_torch.models.init_net import DepthInitNet
 from neuray_tpu_torch.models.resunet import ResUNetLight
@@ -144,7 +147,8 @@ class RenderConfig:
 _SUPPORTED = {
     "vis_encoder_type": ("default",),
     "dist_decoder_type": ("mixture_logistics",),
-    "agg_net_type": ("default",), "init_net_type": ("depth", ""),
+    "agg_net_type": ("default",),
+    "init_net_type": ("depth", "cost_volume", ""),
     "use_dr_prediction": (False,),
 }
 
@@ -183,16 +187,26 @@ class NeurayRenderer(nn.Module):
                 cfg.fine_use_vis, dtype=dt)
             self.fine_agg_net = DefaultAggregationNet(
                 cfg.neuray_dim, cfg.fine_depth_sample_num, dt)
-        if cfg.init_net_type:
+        if cfg.init_net_type == "depth":
             self.init_net = DepthInitNet(cfg.init_diff_scale, dt)
+        elif cfg.init_net_type == "cost_volume":
+            self.init_net = CostVolumeInitNet(cfg.cost_volume_sn, dt)
 
     # ---------------- per-scene stages ----------------
 
-    def initialize_ray_feats(self, ref: Tensors) -> torch.Tensor:
-        """Init net: raw visibility features G' [rfn, h/4, w/4, 32]."""
+    def initialize_ray_feats(self, ref: Tensors, src: Tensors | None = None,
+                             is_train: bool = False) -> torch.Tensor:
+        """Init net: raw visibility features G' [rfn, h/4, w/4, 32]. The
+        cost-volume init net needs the source views ``src`` (imgs,
+        poses, Ks, depth_range) and ``ref["nn_ids"]`` [rfn, nn], indices
+        into them; ``is_train`` skips its eval-time resize."""
         if not self.cfg.init_net_type:
             raise ValueError("this renderer has no init net "
                              "(init_net_type=''): its ray features are given")
+        if self.cfg.init_net_type == "cost_volume":
+            if src is None:
+                raise ValueError("the cost-volume init net needs src views")
+            return self.init_net(ref, src, is_train)
         return self.init_net(ref)
 
     def encode_scene(self, ref: Tensors, ray_feats_raw: torch.Tensor):
@@ -462,9 +476,11 @@ class NeurayRenderer(nn.Module):
 
     def forward(self, ref: Tensors, que: Tensors, is_train: bool = True,
                 depth_loss_coords: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> Tensors:
+                generator: torch.Generator | None = None,
+                src: Tensors | None = None) -> Tensors:
         """The training forward on one ray chunk, with autograd: init net
-        -> image and vis encoders -> gather maps -> ``render_chunk`` (fine
+        (on ``src`` too for the cost volume; MVSNet takes no gradient) ->
+        image and vis encoders -> gather maps -> ``render_chunk`` (fine
         draws from ``generator``), and with ``depth_loss_coords`` [rfn,
         pn, 2] the depth-loss head. ``que`` carries ``imgs`` for
         ``pixel_colors_gt``. f32 only: the bf16 route's weight copies are
@@ -472,7 +488,7 @@ class NeurayRenderer(nn.Module):
         if self.cfg.use_bf16 and is_train:
             raise NotImplementedError("training runs in f32 only "
                                       "(RenderConfig.use_bf16=True)")
-        ray_feats_raw = self.initialize_ray_feats(ref)
+        ray_feats_raw = self.initialize_ray_feats(ref, src, is_train)
         img_feats, ray_feats = self.encode_scene(ref, ray_feats_raw)
         ref_c = self.build_gather_cache(
             dict(ref, img_feats=img_feats, ray_feats=ray_feats))
@@ -610,10 +626,12 @@ DEFAULT_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine",
 
 
 @torch.inference_mode()
-def encode_ref(renderer: NeurayRenderer, ref: Tensors) -> Tensors:
-    """Scene encode: ref dict -> the same dict plus img_feats, ray_feats
-    and the packed gather map ``feats``."""
-    ray_feats_raw = renderer.initialize_ray_feats(ref)
+def encode_ref(renderer: NeurayRenderer, ref: Tensors,
+               src: Tensors | None = None) -> Tensors:
+    """Scene encode: ref dict (and for the cost-volume init net its src
+    views) -> the ref dict plus img_feats, ray_feats and the packed
+    gather map ``feats``."""
+    ray_feats_raw = renderer.initialize_ray_feats(ref, src)
     img_feats, ray_feats = renderer.encode_scene(ref, ray_feats_raw)
     ref_c = dict(ref)
     ref_c["img_feats"] = img_feats
@@ -656,9 +674,12 @@ def render_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
 
 
 def render_full(renderer: NeurayRenderer, ref: Tensors, que: Tensors,
-                keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
-    """Scene encode + the chunked ray loop."""
-    return render_rays(renderer, encode_ref(renderer, ref), que, keep_keys)
+                keep_keys: Iterable[str] = DEFAULT_KEEP,
+                src: Tensors | None = None) -> Tensors:
+    """Scene encode (with ``src`` for the cost-volume init net) + the
+    chunked ray loop."""
+    return render_rays(renderer, encode_ref(renderer, ref, src), que,
+                       keep_keys)
 
 
 def render_coarse_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,

@@ -317,7 +317,7 @@ class Trainer(BaseTrainer):
         and its losses."""
         outputs = self.renderer(batch["ref"], batch["que"], True,
                                 batch.get("depth_loss_coords"),
-                                self.generator)
+                                self.generator, batch.get("src"))
         return self.loss_fn(outputs, batch)
 
     # ---------------- validation ----------------
@@ -337,7 +337,8 @@ class Trainer(BaseTrainer):
             sample = self.to_device(dataset[i])
             que = {k: v for k, v in sample["que"].items() if k != "imgs"}
             outputs = {k: v.cpu().numpy() for k, v in render_full(
-                self.renderer, sample["ref"], que, VAL_KEEP).items()}
+                self.renderer, sample["ref"], que, VAL_KEEP,
+                sample.get("src")).items()}
             imgs = sample["que"]["imgs"]
             outputs["pixel_colors_gt"] = imgs.reshape(1, -1, 3).cpu().numpy()
             yield outputs, tuple(imgs.shape[1:3])

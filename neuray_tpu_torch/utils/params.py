@@ -7,9 +7,15 @@ The port names its submodules after the flax tree
 (``image_encoder.layer1.block0.conv1``...), so each leaf maps by one
 rule per leaf kind:
   * a conv kernel [kh, kw, in, out] becomes ``weight`` [out, in, kh, kw];
+  * a 3-D kernel [kd, kh, kw, a, b] becomes ``weight`` [b, a, kd, kh, kw]:
+    a Conv3d's [kd, kh, kw, in, out] becomes its [out, in, kd, kh, kw],
+    and a ConvTranspose3d's (flax's ``transpose_kernel`` layout [kd, kh,
+    kw, out, in], ``neuray_tpu/utils/mvsnet_convert.py``) becomes its
+    [in, out, kd, kh, kw], with no flip: one permutation serves both;
   * a dense kernel [in, out] becomes a Linear ``weight`` [out, in];
-  * an InstanceNorm / LayerNorm ``scale`` becomes ``weight``;
-  * ``bias`` stays ``bias``;
+  * an InstanceNorm / LayerNorm / FrozenBN ``scale`` becomes ``weight``;
+  * ``bias`` stays ``bias``, and a FrozenBN's ``mean`` and ``var`` stay
+    (the port keeps them as parameters that take no gradient);
   * flax's ``Conv_0`` level inside a ``ReflectConv`` is dropped (the
     port's ``ReflectConv`` is itself the conv).
 """
@@ -59,12 +65,14 @@ def flax_to_torch(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         arr = np.array(arr, np.float32)                 # own, writable
         if leaf == "kernel" and arr.ndim == 4:
             name, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and arr.ndim == 5:
+            name, arr = "weight", arr.transpose(4, 3, 0, 1, 2)
         elif leaf == "kernel" and arr.ndim == 2:
             name, arr = "weight", arr.T
         elif leaf == "scale" and arr.ndim == 1:
             name = "weight"
-        elif leaf == "bias" and arr.ndim == 1:
-            name = "bias"
+        elif leaf in ("bias", "mean", "var") and arr.ndim == 1:
+            name = leaf
         else:
             raise ValueError(f"unknown leaf {'/'.join(path)} "
                              f"with shape {arr.shape}")
@@ -82,9 +90,10 @@ def torch_to_flax(module: nn.Module,
     its parameters (default: the parameters themselves; or, say, their
     gradients) -> ``{"params": tree}`` of f32 numpy arrays in the flax
     layout. The owning submodule gives each leaf's kind: a conv weight
-    becomes ``kernel`` [kh, kw, in, out], a ``ReflectConv``'s leaves go
-    under ``Conv_0``, a Linear weight becomes ``kernel`` [in, out], any
-    other ``weight`` (a norm's) ``scale``."""
+    becomes ``kernel`` [kh, kw, in, out], a 3-D (transposed) conv's
+    [kd, kh, kw, a, b], a ``ReflectConv``'s leaves go under ``Conv_0``, a
+    Linear weight becomes ``kernel`` [in, out], any other ``weight`` (a
+    norm's) ``scale``."""
     from neuray_tpu_torch.models.blocks import ReflectConv
     tree: Dict[str, Any] = {}
     for mod_name, mod in module.named_modules():
@@ -98,6 +107,9 @@ def torch_to_flax(module: nn.Module,
                     leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
                 if isinstance(mod, ReflectConv):
                     path.append("Conv_0")
+            elif isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d)):
+                if leaf == "weight":
+                    leaf, arr = "kernel", arr.transpose(2, 3, 4, 1, 0)
             elif leaf == "weight":
                 leaf, arr = (("kernel", arr.T) if isinstance(mod, nn.Linear)
                              else ("scale", arr))
@@ -111,11 +123,14 @@ def torch_to_flax(module: nn.Module,
 def init_like_flax(module: nn.Module) -> None:
     """Re-draw ``module``'s parameters, in place from torch's default
     generator, from the distributions the JAX package's flax modules
-    initialize them with: every conv and dense kernel from a normal
-    truncated at two deviations with variance scale / fan_in (flax's
-    ``variance_scaling`` "truncated_normal"), scale 2 (``he_normal``) in
-    the aggregation net's dense chains and 1 (``lecun_normal``, flax's
-    default) elsewhere; biases 0, norm scales 1. (PyTorch's own defaults
+    initialize them with: every conv (2-D, 3-D and transposed 3-D) and
+    dense kernel from a normal truncated at two deviations with variance
+    scale / fan_in (flax's ``variance_scaling`` "truncated_normal"; a
+    transposed kernel's fan_in counts its out channels, as flax's
+    ``transpose_kernel`` layout puts them second to last), scale 2
+    (``he_normal``) in the aggregation net's dense chains and 1
+    (``lecun_normal``, flax's default) elsewhere; biases 0, norm scales 1,
+    a FrozenBN's mean 0 and var 1. (PyTorch's own defaults
     draw biases too and leave the fine aggregation net's ReLU density
     dead at init on the synthetic scene.)"""
     from neuray_tpu_torch.models.ibrnet import _Seq, _SplitSeq
@@ -124,7 +139,8 @@ def init_like_flax(module: nn.Module) -> None:
           for m in seq.modules()}
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d,
+                                nn.Linear)):
                 w = mod.weight
                 fan_in = w[0].numel()
                 std = np.sqrt((2.0 if id(mod) in he else 1.0) / fan_in
@@ -136,6 +152,9 @@ def init_like_flax(module: nn.Module) -> None:
                                                        nn.Parameter):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+                if hasattr(mod, "var"):
+                    mod.mean.zero_()
+                    mod.var.fill_(1.0)
 
 
 def load_flax_params(module: nn.Module, tree: Dict[str, Any]) -> None:

@@ -164,8 +164,7 @@ def test_unported_options_raise(tmp_path, over, error, match):
 
 
 @pytest.mark.parametrize("gen_cfg,match", [
-    ("configs/gen/neuray_gen_depth.yaml", "item 7"),
-    ({**GEN_CFG, "init_net_type": "cost_volume"}, "item 10")])
+    ("configs/gen/neuray_gen_depth.yaml", "item 7")])
 def test_unported_gen_inits_raise(tmp_path, gen_cfg, match):
     ft = F.FtRenderer(make_cfg(tmp_path, gen_cfg=gen_cfg), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
