@@ -80,6 +80,27 @@ Phases, one line each, any failure raising (exit code != 0):
      ray_feats from MVSNet on each of the 100 views with its 3 nearest
      views at 640x640, then the same steps, checks, validation and
      gradient check as phase 9.
+ 12. generalization training through the port's CLI on the dataset
+     mixture (``gen_cli_phase``): one scene of each of the five training
+     families fabricated on disk at its reader's size (``GEN_CLI_DATA``),
+     fern (20 JPEG originals at 4032x3024 and a COLMAP model) and lego
+     for validation; the host's time to make a sample of each family;
+     ``python -m neuray_tpu_torch.run_training`` (``main``) on a copy of
+     ``configs/train/gen/neuray_gen_depth_train.yaml`` cut to 40 steps
+     (``GEN_CLI_CUTS``, its val sets to one view each), every step's
+     gather launches held, the validation's psnr_nr_fine on fern and lego
+     and its vis_img files held to the renders through the codec (the gt
+     panel >= 35 dB, the whole >= 30 dB), fern's cache
+     build and JPEG reads timed, a profiled step, one step's gradients on
+     each of three real-estate crops (``GRAD_SAMPLE_CLOCKS``) on the card
+     against the CPU's, the ResUNet encoders' against an f64 witness
+     (``grad_check``), and the forward and
+     backward kernels timed on the real coordinates of the GSO map and
+     the 400x600 crop's map (``real_coord_rows``);
+ 13. cost-volume generalization training the same way
+     (``configs/train/gen/neuray_gen_cost_volume_train.yaml``, 15 steps,
+     validating on fern): steps/s and the cost-volume init net's share of
+     a step.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``.
@@ -89,15 +110,24 @@ gather, ``KEY_ROWS``; the backward at generalization training's
 64-channel gather);
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits non-zero before printing anything.
+
+    python3 chip_smoke.py --grad-sweep N --out FILE
+
+runs phase 12's gradient check alone on the real-estate crops of N clocks,
+with the ResUNet encoders' f64 witness and, at the worst clock and any
+outside the bar, a layer-by-layer trace of where f32 strays from it
+(``grad_sweep``, ``encoder_trace``); the tables go to FILE.
 """
 import copy
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -155,6 +185,13 @@ WARMUP_STEPS, TIMED_STEPS = 3, 30
 GRAD_CHECK_DATA = {"rfn": 4, "h": 64, "w": 96, "train_ray_num": 256,
                    "depth_loss_coords_num": TRAIN_DEPTH_COORDS}
 GRAD_BOUND, GRAD_FLOOR = 2e-3, 1e-5
+# the renderer's ResUNets, whose leaves phase 12 holds to an f64 witness
+WITNESSED = ("image_encoder", "init_net.res_net")
+# compare_grads's columns for a leaf of theirs under the f64 witness;
+# the held ones: "card vs its masks' f64" and "f64 vs f64"
+WITNESS_COLUMNS = ("card vs CPU", "card vs its masks' f64",
+                   "CPU vs its masks' f64", "card vs f64", "CPU vs f64",
+                   "f64 vs f64")
 # what phase 8 changes in the training config: synthetic sphere scenes in
 # place of the 5-dataset mixture (no augmentation), psnr_ssim without the
 # vis_img dumps, a one-view synthetic val set, and the run's length
@@ -318,12 +355,13 @@ def time_ms(fn, *args, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, *args, n=10, tries=3):
+def device_ms(fn, *args, n=10, tries=6):
     """Device time per call from ``torch.profiler``'s device rows: for
     each kernel (or memset) of a call, the mean duration of its rows over
     n calls, summed (at the per-chunk shapes a CUDA-event window measures
     the wrapper's host time, not the kernel). A window whose device rows
-    come back empty (seen once on the card, on a 4 us kernel) or with a
+    come back empty (seen on the card on a 4 us kernel, three windows in
+    a row once) or with a
     kernel short of one row a call (seen after the training phases: rows
     dropped) is profiled again, up to ``tries`` windows; the means stand
     for the rows that came. Returns (ms, device events per call, {short
@@ -1410,81 +1448,251 @@ def sphere_rays(sample, n, seed=0):
     return sample
 
 
-def grad_check(trainer, dev, weights):
+def tap(module, names):
+    """Forward hooks on ``module``'s submodules ``names`` ("" for itself):
+    each call records the submodule's first input and its output, and the
+    output's gradient when a backward reaches it. Returns (records by
+    name, the hooks' handles)."""
+    rec, handles = {}, []
+    for name in names:
+        def hook(mod, args, out, name=name):
+            r = rec[name] = {"in": args[0].detach(), "out": out.detach()}
+            if out.requires_grad:
+                out.register_hook(lambda g: r.__setitem__("grad", g.detach()))
+        handles.append(module.get_submodule(name).register_forward_hook(hook))
+    return rec, handles
+
+
+def relu_tape(module=None, replay=None):
+    """``torch.nn.functional.relu`` replaced until the returned ``restore``
+    is called: it records each call's mask (input > 0, on the CPU) into
+    the returned list while ``module``'s forward runs (every call if
+    module is None), or with ``replay`` (masks in call order) returns its
+    input times the next mask, so the backward passes exactly where the
+    recorded forward passed. Returns (the masks, restore)."""
+    F = torch.nn.functional
+    own, masks, state = F.relu, [], {"on": module is None}
+
+    def relu(x, inplace=False):
+        if replay is not None:
+            masks.append(replay[len(masks)])
+            return x * masks[-1].to(x.device, x.dtype)
+        out = own(x, inplace=inplace)
+        if state["on"]:
+            masks.append((out > 0).cpu())
+        return out
+
+    handles = [] if module is None else [
+        module.register_forward_pre_hook(lambda *a: state.update(on=True)),
+        module.register_forward_hook(lambda *a: state.update(on=False))]
+
+    def restore():
+        F.relu = own
+        for h in handles:
+            h.remove()
+
+    F.relu = relu
+    return masks, restore
+
+
+def encoder_f64(encoder, imgs, grad, names=(), masks=None,
+                prefix="image_encoder"):
+    """The f64 witness: ``encoder`` (a ResUNet of the renderer: the image
+    encoder, the init net's ``res_net``) copied to f64 on the CPU, its
+    InstanceNorms too (the port computes their statistics in f32), run on
+    imgs and taken back from ``grad``, the gradient of its output; with
+    ``masks`` (an f32 forward's ReLU masks, ``relu_tape``) each ReLU
+    passes where that forward's did. Returns (its parameters' gradients
+    by the renderer's names, under ``prefix``; ``tap`` records of names;
+    its ReLU masks)."""
+    from neuray_tpu_torch.models import blocks
+    enc = copy.deepcopy(encoder).cpu().double()
+    rec, handles = tap(enc, names)
+    own = blocks.InstanceNorm.forward
+    blocks.InstanceNorm.forward = lambda self, x: \
+        torch.nn.functional.instance_norm(x, weight=self.weight,
+                                          bias=self.bias, eps=self.eps)
+    used, restore = relu_tape(replay=masks)
+    try:
+        enc(imgs.cpu().double()).backward(grad.cpu().double())
+    finally:
+        restore()
+        blocks.InstanceNorm.forward = own
+        for h in handles:
+            h.remove()
+    if masks is not None and len(used) != len(masks):
+        raise RuntimeError(f"the witness made {len(used)} ReLU calls, the "
+                           f"forward it replays {len(masks)}")
+    return ({f"{prefix}.{n}": p.grad for n, p in enc.named_parameters()},
+            rec, used)
+
+
+def grad_check(trainer, dev, weights, sample=None, what=None, witness=False,
+               strict=True):
     """One training step's gradients on the card and on the CPU from the
     trained ``tools/bench_weights.npz`` (``weights``: the flax tree) in
     the training config, on the same inputs (a ``GRAD_CHECK_DATA`` sample)
     and the same fine draws (a CPU generator of one seed on both sides):
     each parameter's gradient within ``GRAD_BOUND`` of its norm plus
-    ``GRAD_FLOOR`` (the card sums in another order, its atomics in another
-    order on every run; a conv bias that feeds an InstanceNorm has an
-    exactly zero gradient, and both sides leave rounding there). Both
-    sides take the CPU's cross-view diff features: a pure function of the
-    data, with no gradient, held to the kernel in phases 3 and 5, whose
-    f32 rounding the init net's gradients amplify (4.4e-3 for 6.3e-6 on
-    the CPU test's scene, ``tests/test_torch_port_train.py``). The
-    trained weights, not the 33-step parameters of the run: there the
-    image encoder's first layers amplified the card's other summation
-    order past the bar (a conditioning of that early state; the trained
-    weights pass with a wide margin). Returns the
-    worst relative error of a parameter whose gradient is above 1000
-    floors, and its name."""
+    ``GRAD_FLOOR`` (``compare_grads``; the card sums in another order, its
+    atomics in another order on every run; a conv bias that feeds an
+    InstanceNorm has an exactly zero gradient, and both sides leave
+    rounding there). Both sides take the CPU's cross-view diff features:
+    a pure function of the data, with no gradient, held to the kernel in
+    phases 3 and 5, whose f32 rounding the init net's gradients amplify
+    (4.4e-3 for 6.3e-6 on the CPU test's scene,
+    ``tests/test_torch_port_train.py``). The trained weights, not the
+    33-step parameters of the run: there the image encoder's first layers
+    amplified the card's other summation order past the bar (a
+    conditioning of that early state; the trained weights pass with a wide
+    margin). ``sample`` (a training sample, its rays already where the
+    query sees the sphere; phase 12 passes real-estate crops) and ``what``
+    replace the synthetic sample and its description.
+
+    ``witness`` (phase 12): the leaves of the renderer's two ResUNets
+    (``WITNESSED``) are held to their f64 witness (``encoder_f64``, from
+    each side's own input and gradient of the encoder's output, each ReLU
+    passing where that side's f32 forward passed: ``relu_tape``) rather
+    than to the CPU's f32 gradients. On real-estate crops 9-15 elements
+    of the image encoder's ReLUs round across zero in an f32 forward,
+    differently on the card and on the CPU (``encoder_trace``); each flip
+    moves the layers below it by up to ~1e-3 of their gradient's norm, so
+    two f32 sides differ by the sum of their flips, while each, with its
+    own masks, is within ~1e-4 of f64 (the card ~2e-6). The step is also
+    taken on the card with the CPU's fine depths (the fine sampler turns
+    the coarse hit_prob's rounding into a far larger move of the fine
+    depths, ROADMAP Queue 3, fault 3), as phase 9 does; both comparisons
+    are printed, the one with the CPU's fine depths is held (one
+    real-estate crop of 12, its fine depths 0.051 apart, reads 3.18e-3 on
+    ``fine_agg_net`` with its own and 5.6e-4 with the CPU's). ``strict``: raise when a held leaf is outside
+    its bar. Returns the records of ``compare_grads`` (``own``: each
+    side's fine depths; ``given``: the CPU's given to the card, under
+    ``witness``), the fine depths' largest difference, the losses and,
+    under ``witness``, the CPU's encoder input and output gradient
+    (``io``)."""
     from neuray_tpu_torch.data.train_dataset import SyntheticRendererDataset
     from neuray_tpu_torch.models import init_net as N
     from neuray_tpu_torch.models.renderer import NeurayRenderer
     from neuray_tpu_torch.utils.params import load_flax_params
     trained = NeurayRenderer(trainer.renderer.cfg)
     load_flax_params(trained, weights)
-    sample = sphere_rays(SyntheticRendererDataset(GRAD_CHECK_DATA, True)[0],
-                         GRAD_CHECK_DATA["train_ray_num"])
-    del sample["scene_name"]
+    if sample is None:
+        sample = sphere_rays(
+            SyntheticRendererDataset(GRAD_CHECK_DATA, True)[0],
+            GRAD_CHECK_DATA["train_ray_num"])
+        what = (f"training gradients, card vs CPU ({GRAD_CHECK_DATA}, {DN} "
+                f"+ {DN} samples, rays through the sphere)")
+    sample = {k: v for k, v in sample.items() if k != "scene_name"}
     ref = {k: torch.from_numpy(v) for k, v in sample["ref"].items()}
     diff = N.get_diff_feats(
         ref["imgs"], N.extract_depth_for_init(ref["depth_range"],
                                               ref["depth"]),
         ref["depth_range"], ref["poses"], ref["Ks"])
-    own_diff = N.get_diff_feats
-    N.get_diff_feats = lambda imgs, *args: diff.to(imgs.device)
-    grads, totals = [], []
-    try:
-        for device in (dev, torch.device("cpu")):
-            renderer = copy.deepcopy(trained).to(device).train()
-            batch = {k: ({n: torch.from_numpy(x).to(device)
-                          for n, x in v.items()} if isinstance(v, dict)
-                         else torch.from_numpy(v).to(device))
-                     for k, v in sample.items()}
+
+    def step(device, fine=None):
+        """The step on device (the fine depths replaced by ``fine`` where
+        given): its loss, gradients, fine depths and encoder record."""
+        renderer = copy.deepcopy(trained).to(device).train()
+        names = WITNESSED if witness else ()
+        rec, handles = tap(renderer, names)
+        seen, own = [], renderer._fine_depth
+
+        def fine_depth(*args):
+            d = own(*args) if fine is None else fine[len(seen)].to(device)
+            seen.append(d.detach().cpu())
+            return d
+
+        renderer._fine_depth = fine_depth
+        batch = {k: ({n: torch.from_numpy(x).to(device)
+                      for n, x in v.items()} if isinstance(v, dict)
+                     else torch.from_numpy(v).to(device))
+                 for k, v in sample.items()}
+        tapes = [relu_tape(renderer.get_submodule(n)) for n in names]
+        try:
             out = renderer(batch["ref"], batch["que"], True,
-                           batch["depth_loss_coords"],
+                           batch.get("depth_loss_coords"),
                            torch.Generator().manual_seed(11))
             losses = trainer.loss_fn(out, batch)
             total = sum(v.mean() for k, v in losses.items()
                         if k.startswith("loss"))
             total.backward()
-            totals.append(total.item())
-            grads.append({n: p.grad.cpu().double()
-                          for n, p in renderer.named_parameters()
-                          if p.grad is not None})
+        finally:
+            for _, restore in reversed(tapes):
+                restore()
+            for h in handles:
+                h.remove()
+        grads = {n: p.grad.cpu().double()
+                 for n, p in renderer.named_parameters() if p.grad is not None}
+        io = {n: {"in": rec[n]["in"].cpu(), "grad": rec[n]["grad"].cpu(),
+                  "masks": masks} for n, (masks, _) in zip(names, tapes)}
+        return total.item(), grads, seen, io
+
+    own_diff = N.get_diff_feats
+    N.get_diff_feats = lambda imgs, *args: diff.to(imgs.device)
+    try:
+        cpu = step(torch.device("cpu"))
+        card = step(dev)
+        given = step(dev, cpu[2]) if witness else None
     finally:
         N.get_diff_feats = own_diff
-    worst = compare_grads(*grads, f"training gradients, card vs CPU "
-                          f"({GRAD_CHECK_DATA}, {DN} + {DN} samples, rays "
-                          "through the sphere)")
-    log(f"training loss, card vs CPU: {totals[0]:.6f} vs {totals[1]:.6f}")
-    return worst
+    moved = max((a - b).abs().max().item() for a, b in zip(card[2], cpu[2]))
+    if not witness:
+        result = compare_grads(card[1], cpu[1], what, None, strict)
+        log(f"training loss, card vs CPU: {card[0]:.6f} vs {cpu[0]:.6f}")
+        return {"own": result, "given": None, "moved": moved,
+                "losses": (card[0], cpu[0]), "io": None}
+
+    def f64(side):
+        """The side's f64 witnesses of the ``WITNESSED`` modules, from its
+        own input and output gradient: with f64's own ReLU masks, and
+        with the side's, and the count of elements where they differ."""
+        exact, replayed, flips = {}, {}, 0
+        for name in WITNESSED:
+            module, io = trained.get_submodule(name), side[3][name]
+            grads, _, masks = encoder_f64(module, io["in"], io["grad"],
+                                          prefix=name)
+            exact.update(grads)
+            replayed.update(encoder_f64(module, io["in"], io["grad"],
+                                        masks=io["masks"], prefix=name)[0])
+            flips += sum(int((a != b).sum())
+                         for a, b in zip(masks, io["masks"]))
+        return exact, replayed, flips
+
+    w_cpu = f64(cpu)
+    result = compare_grads(card[1], cpu[1], what + ", each its own fine "
+                           "depths", None, False)
+    result_given = compare_grads(
+        given[1], cpu[1], what + ", the card given the CPU's fine depths",
+        (f64(given), w_cpu), strict)
+    log(f"training loss, card vs CPU: {card[0]:.6f} vs {cpu[0]:.6f}; the "
+        f"fine depths differ by up to {moved:.3g}")
+    return {"own": result, "given": result_given, "moved": moved,
+            "losses": (card[0], cpu[0]), "io": cpu[3]["image_encoder"]}
 
 
-def compare_grads(card, cpu, what):
+def compare_grads(card, cpu, what, witness=None, strict=True):
     """Each parameter's gradient on the card within ``GRAD_BOUND`` of its
-    norm on the CPU plus ``GRAD_FLOOR``; raises otherwise. Returns the
-    worst relative error of a parameter whose gradient is above 1000
-    floors, and its name."""
+    norm on the CPU plus ``GRAD_FLOOR``; raises otherwise (unless not
+    ``strict``). ``witness`` (for the card and for the CPU, ``grad_check``:
+    the f64 gradients of the ``WITNESSED`` encoders from their output
+    gradient with f64's ReLU masks, the same with its own f32 forward's
+    masks, and the count of elements where the masks differ): each of
+    their leaves is held instead to its witness with the card's own masks
+    (the card's rounding, its ReLU flips taken out), and the two exact
+    witnesses to each other (what the inputs' and output gradients'
+    difference makes of it), each within ``GRAD_BOUND`` of the witness's
+    norm plus ``GRAD_FLOOR``; the CPU's distances and each side's
+    distance to the exact witness (its flips in) are reported.
+    Returns a record: the worst relative error of a parameter whose
+    gradient is above 1000 floors and its name, the leaves outside their
+    bar (name -> (error, norm)), the flips, and under ``witness`` by
+    witnessed leaf the relative errors (``WITNESS_COLUMNS``) and the
+    norm."""
     if card.keys() != cpu.keys():
         raise RuntimeError("the card and the CPU differ in which parameters "
                            "get a gradient")
     err = {n: ((card[n] - g).norm().item(), g.norm().item())
            for n, g in cpu.items()}
-    bad = {n: e for n, e in err.items()
-           if not e[0] <= GRAD_BOUND * e[1] + GRAD_FLOOR}
     rel = {n: d / g for n, (d, g) in err.items() if g > 1e3 * GRAD_FLOOR}
     worst = max(rel, key=rel.get)
     small = max([d for d, g in err.values() if g <= 1e3 * GRAD_FLOOR] or [0])
@@ -1493,9 +1701,88 @@ def compare_grads(card, cpu, what):
         f"{np.median(list(rel.values())):.3g} over the {len(rel)} above "
         f"{1e3 * GRAD_FLOOR:g}; largest difference under the floor "
         f"{small:.3g}")
-    if bad:
+    held, rows, flips = dict(err), {}, None
+    if witness is not None:
+        (exact_card, masked_card, flips_card), (exact, masked, flips_cpu) = \
+            witness
+        flips = (flips_card, flips_cpu)
+        for n, w in exact.items():
+            norm = w.norm().item()
+            dist = [(card[n] - masked_card[n]).norm().item(),
+                    (cpu[n] - masked[n]).norm().item(),
+                    (card[n] - exact_card[n]).norm().item(),
+                    (cpu[n] - w).norm().item(),
+                    (exact_card[n] - w).norm().item()]
+            held[n] = (max(dist[0], dist[4]), norm)
+            rows[n] = tuple(x / (norm + GRAD_FLOOR)
+                            for x in [err[n][0]] + dist) + (norm,)
+        big = {n: r for n, r in rows.items() if r[-1] > 1e3 * GRAD_FLOOR}
+        rest = {n: r for n, r in rel.items() if n not in rows}
+        log(f"{what}, the ResUNets' {len(rows)} leaves against their f64 "
+            f"witness (ReLU flips: card {flips_card}, CPU {flips_cpu}), "
+            f"the worst over the {len(big)} above {1e3 * GRAD_FLOOR:g}: "
+            + ", ".join(f"{label} {max(r[i] for r in big.values()):.3g} ("
+                        f"{max(big, key=lambda n: big[n][i])})"
+                        for i, label in enumerate(WITNESS_COLUMNS))
+            + f"; the other leaves card vs CPU {max(rest.values()):.3g} "
+            f"({max(rest, key=rest.get)})")
+    bad = {n: e for n, e in held.items()
+           if not e[0] <= GRAD_BOUND * e[1] + GRAD_FLOOR}
+    if bad and strict:
         raise RuntimeError(f"card and CPU gradients differ: {bad}")
-    return rel[worst], worst
+    return {"worst": (rel[worst], worst), "bad": bad, "flips": flips,
+            "witness": rows}
+
+
+def encoder_trace(encoder, dev, imgs, grad):
+    """Where the image encoder turns rounding into gradient error: the
+    encoder alone, run on imgs and taken back from grad on the card in
+    f32, on the CPU in f32 and in f64 (``encoder_f64``), every submodule
+    tapped. Returns one line per submodule in the order its forward ends:
+    the relative error of its output and of its output's gradient, card
+    and CPU against f64, and for an InstanceNorm the largest ratio over
+    its planes of the input's RMS to its deviation (the digits its mean's
+    subtraction cancels); where a ReLU follows (a block's output, a bn1's),
+    the count of elements whose ReLU passes in f32 and not in f64, or the
+    reverse, on the card and on the CPU."""
+    from neuray_tpu_torch.models.blocks import BasicBlock, InstanceNorm
+    names = [n for n, _ in encoder.named_modules() if n]
+    recs = []
+    for device in (dev, torch.device("cpu")):
+        enc = copy.deepcopy(encoder).to(device)
+        rec, handles = tap(enc, names)
+        enc(imgs.to(device)).backward(grad.to(device))
+        for h in handles:
+            h.remove()
+        recs.append(rec)
+    _, r64, _ = encoder_f64(encoder, imgs, grad, names)
+
+    def rel(rec, name, key):
+        if key not in rec[name] or key not in r64[name]:
+            return float("nan")
+        exact = r64[name][key]
+        return ((rec[name][key].cpu().double() - exact).norm()
+                / (exact.norm() + 1e-300)).item()
+
+    lines = []
+    for n in r64:
+        line = (f"{n}: output card {rel(recs[0], n, 'out'):.3g} cpu "
+                f"{rel(recs[1], n, 'out'):.3g}; its gradient card "
+                f"{rel(recs[0], n, 'grad'):.3g} cpu "
+                f"{rel(recs[1], n, 'grad'):.3g}")
+        mod = encoder.get_submodule(n)
+        if isinstance(mod, InstanceNorm):
+            x = r64[n]["in"].flatten(2)
+            ratio = (x.pow(2).mean(-1).sqrt()
+                     / (x.var(-1, unbiased=False) + mod.eps).sqrt())
+            line += f"; input RMS / deviation up to {ratio.max().item():.3g}"
+        if isinstance(mod, BasicBlock) or n.endswith("bn1"):
+            exact = r64[n]["out"] > 0
+            line += "; ReLU flips card {} cpu {}".format(*(
+                int(((rec[n]["out"].cpu() > 0) != exact).sum())
+                for rec in recs))
+        lines.append(line)
+    return lines
 
 
 def profile_step(run_step, what="training step"):
@@ -1928,6 +2215,492 @@ def ft_grad_check(dev, work, cfg, what="finetuning"):
         f" the fine depths differ by up to {moved:.3g}")
 
 
+# phase 12: configs/train/gen/neuray_gen_depth_train.yaml through the port's
+# training CLI (``neuray_tpu_torch.run_training.main``), unchanged but for
+# GEN_CLI_CUTS (its step count and intervals, the DataLoader's workers, the
+# output folder) and, inside the run, its two val sets cut to
+# GEN_CLI_VAL_VIEWS view each. The data: one fabricated scene of each of the
+# five training families at the size its reader takes for resolution_type
+# hr (GSO's 250 views at 512x512; IDR's DTU at 1600x1200; LLFF originals at
+# 4032x3024 reduced by 4; RealEstate10K frames at 1280x720 reduced to
+# 800x450; Spaces at 800x480), 10 views each; fern (20 JPEG originals at
+# 4032x3024, a COLMAP binary model, its 1008x756 cache built on first read)
+# and lego (a NeRF-synthetic sphere at 800x800, GEN_CLI_LEGO_VIEWS train
+# views) for validation, all under build/chip_smoke/data (NEURAY_DATA_ROOT)
+GEN_CLI_CFG = "configs/train/gen/neuray_gen_depth_train.yaml"
+GEN_CLI_WARMUP, GEN_CLI_STEPS = 3, 40
+GEN_CLI_CUTS = dict(total_step=GEN_CLI_STEPS, val_interval=GEN_CLI_STEPS,
+                    save_interval=GEN_CLI_STEPS, worker_num=6)
+GEN_CLI_VAL_VIEWS = 1
+GEN_CLI_DATA = dict(gso_size=512, dtu=(1200, 1600), iconic=(3024, 4032),
+                    estate=(720, 1280), space=(480, 800), n=10)
+FERN_VIEWS, FERN_SIZE = 20, (3024, 4032)
+GEN_CLI_LEGO_VIEWS = 16
+# vis_img: the gt panel's floor (35 dB, the JPEG's loss), and the whole
+# image's (read 35.69-47.36 dB on phase 12's early renders, NVIDIA H100
+# 80GB HBM3)
+VIS_PSNR_FLOOR, VIS_WHOLE_FLOOR = 35.0, 30.0
+# the clocks phase 12's gradient check draws its real-estate crops at (the
+# sample's seed reads the clock); of 12 clocks from GRAD_SAMPLE_TIME
+# (``--grad-sweep 12``), the three with the worst readings: +0 the card
+# farthest from its f64 witness (1.61e-3), +2 the card farthest from the
+# CPU (1.64e-3), +9 outside the bar with each side's own fine depths
+GRAD_SAMPLE_TIME = 1_700_000_000.0
+GRAD_SAMPLE_CLOCKS = tuple(GRAD_SAMPLE_TIME + k for k in (0, 2, 9))
+# phase 13: configs/train/gen/neuray_gen_cost_volume_train.yaml the same
+# way, CV_CLI_STEPS steps, validating on fern only
+CV_CLI_CFG = "configs/train/gen/neuray_gen_cost_volume_train.yaml"
+CV_CLI_STEPS = 15
+CV_CLI_CUTS = dict(GEN_CLI_CUTS, total_step=CV_CLI_STEPS,
+                   val_interval=CV_CLI_STEPS, save_interval=CV_CLI_STEPS)
+
+
+def cut_config(src, dst, cuts):
+    """src's YAML text with each top-level key of cuts set to its value
+    (a scalar): its line replaced, or a line added. Returns the cut
+    lines."""
+    import re
+    text = Path(src).read_text()
+    lines = []
+    for key, value in cuts.items():
+        line = f"{key}: {value}"
+        lines.append(line)
+        pattern = re.compile(rf"^{key}:.*$", re.M)
+        if pattern.search(text):
+            text = pattern.sub(line, text)
+        else:
+            text = text.rstrip("\n") + "\n" + line + "\n"
+    Path(dst).write_text(text)
+    return lines
+
+
+def write_cli_data(data):
+    """Phase 12's scenes under data (``GEN_CLI_DATA``, fern, lego);
+    returns (family -> seconds to write, and fern's and lego's)."""
+    from neuray_tpu_torch.data import fabricate as FB
+    from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
+    shutil.rmtree(data, ignore_errors=True)
+    seconds = FB.write_training_mixture(str(data), **GEN_CLI_DATA)["seconds"]
+    t0 = time.perf_counter()
+    FB.write_llff_colmap(str(data), n=FERN_VIEWS, h=FERN_SIZE[0],
+                         w=FERN_SIZE[1])
+    seconds["llff_colmap/fern"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_nerf_synthetic_sphere(str(data), GEN_CLI_LEGO_VIEWS, H, "lego")
+    seconds["nerf_synthetic/lego"] = time.perf_counter() - t0
+    return seconds
+
+
+def sample_seconds(cfg, families, n=3):
+    """The host's seconds to make one training sample of each family
+    (``GeneralRendererDataset`` alone on it, in this process), the median
+    of n."""
+    from neuray_tpu_torch.data.train_dataset import GeneralRendererDataset
+    out = {}
+    for family in families:
+        ds = GeneralRendererDataset(
+            {**cfg, "train_database_types": [family]}, True)
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            ds[i]
+            times.append(time.perf_counter() - t0)
+        out[family] = float(np.median(times))
+    return out
+
+
+def cli_training(GA, R, dev, cfg_path, cuts, val_keep, view_cut, what):
+    """``run_training.main(["--cfg", cut copy of cfg_path])`` on the card
+    with ``cuts`` (printed), its val sets cut to ``val_keep`` (names) and
+    ``view_cut`` views each; every step timed on the host clock between
+    synchronizations and its gather launches counted; each val view's
+    outputs kept; the first 64-channel map gather that takes a gradient of
+    each map shape kept (map, points, mask, frame). Returns (trainer,
+    steps, launches by instantiation, backward launches, val outputs by
+    set, captured gathers, the fern cache's build seconds or None, the
+    run's seconds)."""
+    from neuray_tpu_torch import run_training
+    from neuray_tpu_torch.data.train_dataset import name2dataset
+    from neuray_tpu_torch.train.trainer import Trainer
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    cut_path = work / Path(cfg_path).name
+    cut_lines = cut_config(Path(__file__).resolve().parent / cfg_path,
+                           cut_path, {**cuts, "output_root": str(work)})
+    state = {"steps": [], "val": {}, "captured": {}, "cache_s": None}
+    own_run = Trainer.run
+
+    def run(trainer):
+        state["trainer"] = trainer
+        shutil.rmtree(trainer.model_dir, ignore_errors=True)
+        os.makedirs(trainer.model_dir)
+        trainer.cfg["val_set_list"] = [v for v in trainer.cfg["val_set_list"]
+                                       if v["name"] in val_keep]
+        for vs in trainer.cfg["val_set_list"]:
+            t0 = time.perf_counter()
+            ds = name2dataset[vs["type"]](vs.get("cfg", {}), False)
+            if vs["cfg"]["val_database_name"].startswith("llff"):
+                state["cache_s"] = time.perf_counter() - t0
+            ds.que_ids = ds.que_ids[:view_cut]
+            ds.num = len(ds.que_ids)
+            trainer._val_datasets[vs["name"]] = ds
+        train_step, metric = trainer.train_step, trainer.val_metrics[0]
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            fwd, bwd = GA.LAUNCHES, GA.BACKWARD_LAUNCHES
+            t0 = time.perf_counter()
+            out = train_step(batch)
+            torch.cuda.synchronize()
+            state["steps"].append({
+                "s": time.perf_counter() - t0, "loss": out["loss_total"],
+                "fwd": GA.LAUNCHES - fwd, "bwd": GA.BACKWARD_LAUNCHES - bwd,
+                "depth_loss": "depth_loss_coords" in batch,
+                "shape": tuple(batch["ref"]["imgs"].shape),
+                "peak": torch.cuda.max_memory_allocated()})
+            if len(state["steps"]) == GEN_CLI_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            return out
+
+        def per_view(data_pr, data_gt, step, **kwargs):
+            state["val"].setdefault(kwargs["model_name"], []).append(
+                (data_pr, data_gt["que_shape"]))
+            return metric(data_pr, data_gt, step, **kwargs)
+
+        trainer.train_step = timed_step
+        trainer.val_metrics[0] = per_view
+        return own_run(trainer)
+
+    gather = R.interpolate_feature_map
+
+    def kept_gather(feats, points, mask, *args):
+        key = tuple(feats.shape)
+        if (feats.requires_grad and key[-1] == 64
+                and key not in state["captured"]):
+            state["captured"][key] = (feats.detach().clone(),
+                                      points.detach().clone(),
+                                      mask.detach().clone(), *args[:2])
+        return gather(feats, points, mask, *args)
+
+    log(f"{what}: python -m neuray_tpu_torch.run_training --cfg {cfg_path} "
+        f"with the cuts {'; '.join(cut_lines)}; val sets {list(val_keep)} "
+        f"on their first {view_cut} view(s)")
+    Trainer.run, R.interpolate_feature_map = run, kept_gather
+    GA.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        run_training.main(["--cfg", str(cut_path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.run, R.interpolate_feature_map = own_run, gather
+    return (state["trainer"], state["steps"], dict(GA.LAUNCHES_BY_DTYPE),
+            GA.BACKWARD_LAUNCHES, state["val"], state["captured"],
+            state["cache_s"], wall)
+
+
+def check_cli_steps(steps, n_steps, diff_gather, what):
+    """Every step's gather launches: per pass the rgb and 64-ch maps, the
+    depth init's diff gather (``diff_gather``), the depth-loss head where
+    the sample has depth_loss_coords (GSO's); backward the 64-ch map twice
+    and the head. Raises otherwise, or on a step count or loss that is
+    off. Returns (median step seconds after warm-up, the launches a step
+    with and without the head)."""
+    losses = [s["loss"] for s in steps]
+    if len(steps) != n_steps or not np.isfinite(losses).all():
+        raise RuntimeError(f"{what} ran {len(steps)} steps, losses {losses}")
+    bad = [(i, s["fwd"], s["bwd"], s["depth_loss"]) for i, s in
+           enumerate(steps) if (s["fwd"], s["bwd"]) != (
+               diff_gather + 4 + s["depth_loss"], 2 + s["depth_loss"])]
+    if bad:
+        raise RuntimeError(f"{what}: steps with other gather launches than "
+                           f"expected: {bad}")
+    return float(np.median([s["s"] for s in steps[GEN_CLI_WARMUP:]]))
+
+
+def val_psnr(model_dir, name):
+    val = (Path(model_dir) / f"val-{name}.txt").read_text().split()
+    return float(val[val.index("psnr_nr_fine") + 1])
+
+
+def check_vis(model_dir, vis_name, views, step):
+    """Each val view's vis_img file of ``step`` exists and holds the
+    renders within the JPEG's loss: it decodes to the pixels of the
+    rendered images (gt | nr | nr_fine) put through the same codec (a
+    PNG: the pixels themselves), and its ground-truth panel (smooth) lies
+    within ``VIS_PSNR_FLOOR`` dB of the truth, the whole image within
+    ``VIS_WHOLE_FLOOR`` dB of the renders (a JPEG's loss on an early
+    model's speckled renders depends on them). Returns the worst PSNR of
+    the whole images and of the gt panels."""
+    from neuray_tpu_torch.train.metrics import color_map_backward
+    from neuray_tpu_torch.utils.codec import decode_jpeg, encode_jpeg
+    from neuray_tpu_torch.utils.imageio import imread
+    worst, worst_gt = np.inf, np.inf
+    for i, (data_pr, (h, w)) in enumerate(views):
+        ext = "png" if (h <= 64 and w <= 64) else "jpg"
+        path = (Path(model_dir) / "vis_val" / vis_name /
+                f"step-{step}-index-{i}.{ext}")
+        img = imread(path)
+        exact = np.concatenate([color_map_backward(
+            np.asarray(data_pr[k]).reshape(h, w, 3)) for k in (
+                "pixel_colors_gt", "pixel_colors_nr", "pixel_colors_nr_fine")
+            if k in data_pr], 1)
+        coded = exact if ext == "png" else decode_jpeg(encode_jpeg(exact))
+        if not np.array_equal(img, coded):
+            raise RuntimeError(f"vis_img {path} does not hold the renders")
+        worst = min(worst, psnr(img / 255, exact / 255))
+        worst_gt = min(worst_gt, psnr(img[:, :w] / 255, exact[:, :w] / 255))
+    if not worst_gt >= VIS_PSNR_FLOOR:
+        raise RuntimeError(f"vis_img {vis_name}: ground truth {worst_gt:.2f}"
+                           f" dB from the rendered truth < {VIS_PSNR_FLOOR}")
+    if not worst >= VIS_WHOLE_FLOOR:
+        raise RuntimeError(f"vis_img {vis_name}: {worst:.2f} dB from the "
+                           f"renders < {VIS_WHOLE_FLOOR}")
+    return worst, worst_gt
+
+
+def real_coord_rows(GA, dev, captured, what, parent):
+    """Forward and backward rows (``kernel_row``, ``real_backward_rows``)
+    on the real coordinates of a step's first 64-ch map gather, at the
+    GSO map [8, 128, 128, 64] and the forward-facing crop's
+    [8, 100, 152, 64] where the run saw them (else at its first two map
+    shapes). Returns (forward rows, backward rows)."""
+    keys = [k for k in ((RFN, 128, 128, 64), (RFN, 100, 152, 64))
+            if k in captured] or list(captured)
+    fwd, bwd = [], []
+    for key in keys[:2]:
+        feats, points, mask, h, w = captured[key]
+        fh, fw = key[1:3]
+        at = GA.feature_pixel_coords(points, h, w, fh, fw,
+                                     fh == h and fw == w)
+        args = (feats, points, mask, h, w, None)
+        fwd.append(kernel_row(
+            GA, f"{what}, real coords, {h}x{w}", "f32", feats, "fused",
+            (GA.gather_feature_map, *args), (GA.gather_feature_map_ref, *args),
+            at, True, grid_sample_fn(feats, at)))
+        bwd += real_backward_rows(GA, dev, f"{what}, {h}x{w}",
+                                  [(points, mask)], (h, w), fh, fw, parent)
+    return fwd, bwd
+
+
+def real_estate_crop(train_cfg, clock):
+    """A real-estate training sample (``GeneralRendererDataset`` of the
+    mixture's ``train_cfg`` on that family alone, index 0), its seed's
+    clock read as ``clock``, its rays moved onto the sphere
+    (``sphere_rays``)."""
+    from neuray_tpu_torch.data import train_dataset as TD
+    own, TD.time = TD.time, SimpleNamespace(time=lambda: clock)
+    try:
+        sample = TD.GeneralRendererDataset(
+            {**train_cfg, "train_database_types": ["real_estate"]}, True)[0]
+    finally:
+        TD.time = own
+    return sphere_rays(sample, train_cfg.get("train_ray_num", 512))
+
+
+def grad_sweep(dev, n, out_path):
+    """``--grad-sweep N``: phase 12's gradient check alone, with the f64
+    witness of the image encoder (``grad_check``), on the real-estate crops
+    drawn at N clocks (``GRAD_SAMPLE_TIME`` + 0 .. N-1), on phase 12's
+    data and config; none raises. One line per clock printed; every
+    encoder leaf's errors, and an ``encoder_trace`` at every clock outside
+    the bar and at the worst, written to out_path."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data import fabricate as FB
+    from neuray_tpu_torch.models.renderer import NeurayRenderer
+    from neuray_tpu_torch.train.trainer import Trainer
+    from neuray_tpu_torch.utils.config import load_cfg
+    from neuray_tpu_torch.utils.params import (
+        load_flax_params, load_params_npz)
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke"
+    data = work / "data"
+    shutil.rmtree(data, ignore_errors=True)
+    FB.write_training_mixture(str(data), **GEN_CLI_DATA)
+    os.environ["NEURAY_DATA_ROOT"] = str(data)
+    DB.DATA_ROOT = str(data)
+    cfg = {**load_cfg(str(root / GEN_CLI_CFG)), **GEN_CLI_CUTS,
+           "output_root": str(work)}
+    trainer = Trainer(cfg, dev)
+    weights = load_params_npz(str(root / "tools" / "bench_weights.npz"))
+    trained = NeurayRenderer(trainer.renderer.cfg)
+    load_flax_params(trained, weights)
+    records, out = [], []
+    for k in range(n):
+        clock = GRAD_SAMPLE_TIME + k
+        crop = real_estate_crop(cfg["train_dataset_cfg"], clock)
+        t0 = time.perf_counter()
+        r = grad_check(trainer, dev, weights, crop, f"clock {clock:.0f}",
+                       witness=True, strict=False)
+        records.append((clock, r))
+        log(f"clock {clock:.0f}: fine depths moved {r['moved']:.3g}; "
+            + "; ".join(f"{key} {'outside' if r[key]['bad'] else 'inside'}"
+                        f" the bar " + str({n: e[0] / e[1] for n, e in
+                                            r[key]["bad"].items()})
+                        for key in ("own", "given"))
+            + f"; {time.perf_counter() - t0:.1f} s")
+        for key in ("own", "given"):
+            out.append(f"clock {clock:.0f} {key} losses {r['losses']} moved "
+                       f"{r['moved']} worst {r[key]['worst']} bad "
+                       f"{r[key]['bad']} flips {r[key]['flips']}")
+        out.append("  leaf, " + ", ".join(WITNESS_COLUMNS) + ", norm")
+        out += [f"  {n} " + " ".join(f"{x:.4g}" for x in e)
+                for n, e in r["given"]["witness"].items()]
+    worst = max(records, key=lambda cr: max(
+        e[3] for e in cr[1]["given"]["witness"].values()
+        if e[-1] > 1e3 * GRAD_FLOOR))[0]
+    for clock, r in records:
+        if r["own"]["bad"] or r["given"]["bad"] or clock == worst:
+            out.append(f"encoder trace at clock {clock:.0f} (the CPU's output "
+                       "gradient):")
+            lines = encoder_trace(trained.image_encoder, dev, r["io"]["in"],
+                                  r["io"]["grad"])
+            out += ["  " + line for line in lines]
+            if clock == worst:
+                log(f"encoder trace at the worst clock {clock:.0f}:\n  "
+                    + "\n  ".join(lines))
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text("\n".join(out) + "\n")
+
+
+def gen_cli_phase(GA, R, dev, weights, parent=None):
+    """Phase 12: generalization training through the CLI on the fabricated
+    five-family mixture (``GEN_CLI_*``): the data written, the host's time
+    to make one sample of each family, then ``run_training.main`` on the
+    cut config (``cli_training``): 40 steps, every gather and its backward
+    through the kernels (``check_cli_steps``), the validation on fern and
+    lego (psnr_nr_fine; fern's cache built on first read, timed) and its
+    vis_img files (``check_vis``); JPEG reads at 1008x756 and 4032x3024
+    timed; one profiled step on a real-estate crop sample (idle share);
+    the gradients of the crops of ``GRAD_SAMPLE_CLOCKS`` on the card
+    against the CPU's and the ResUNets' against their f64 witness
+    (``grad_check``); the real-coordinate kernel rows
+    (``real_coord_rows``). Returns (launches by instantiation, backward
+    launches, forward rows, backward rows)."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.utils.codec import read_jpeg
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = Path(__file__).resolve().parent / "build" / "chip_smoke" / "data"
+    seconds = write_cli_data(data)
+    os.environ["NEURAY_DATA_ROOT"] = str(data)     # the spawned workers'
+    DB.DATA_ROOT = str(data)
+    log("phase 12 data: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                      seconds.items())
+        + f" to write ({GEN_CLI_DATA}; fern {FERN_VIEWS} views "
+        f"{FERN_SIZE[1]}x{FERN_SIZE[0]}; lego {GEN_CLI_LEGO_VIEWS} train "
+        f"views {H}x{W})")
+    from neuray_tpu_torch.utils.config import load_cfg
+    train_cfg = load_cfg(str(Path(__file__).resolve().parent /
+                             GEN_CLI_CFG))["train_dataset_cfg"]
+    families = train_cfg["train_database_types"]
+    host = sample_seconds(train_cfg, families)
+    log("host seconds to make one training sample (median of 3, one "
+        "process): " + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+
+    trainer, steps, launches, backward, val, captured, cache_s, wall = \
+        cli_training(GA, R, dev, GEN_CLI_CFG, GEN_CLI_CUTS,
+                     ("llff_fern", "nerf_lego"), GEN_CLI_VAL_VIEWS,
+                     "phase 12")
+    step_s = check_cli_steps(steps, GEN_CLI_STEPS, 1, "gen training")
+    timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
+    shapes = sorted({s["shape"] for s in steps})
+    fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
+    lego_psnr = val_psnr(trainer.model_dir, "nerf_lego")
+    vis = {k: check_vis(trainer.model_dir, k, v, GEN_CLI_STEPS)
+           for k, v in val.items()}
+    fern_dir = data / "llff_colmap" / "fern"
+    jpeg_ms = {}
+    for name, path in (("1008x756", next((fern_dir / "cache" / "high")
+                                         .iterdir())),
+                       ("4032x3024", next((fern_dir / "images").iterdir()))):
+        read_jpeg(path)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            read_jpeg(path)
+        jpeg_ms[name] = 1e3 * (time.perf_counter() - t0) / 3
+    n_depth = sum(s["depth_loss"] for s in steps)
+    log(f"phase 12 training: {GEN_CLI_STEPS} steps ({GEN_CLI_WARMUP} warm-up)"
+        f" on the mixture, ref shapes {shapes}: step median {step_s:.4f} s = "
+        f"{1 / step_s:.2f} steps/s (range {timed.min():.4f}-{timed.max():.4f}"
+        f" s), peak memory {steps[-1]['peak'] / 2**30:.2f} GiB, run "
+        f"{wall:.1f} s with the validation; gather launches a step "
+        f"6 forward + 3 backward with the depth-loss head ({n_depth} GSO "
+        f"steps), 5 + 2 without; phase {launches} + {backward} backward")
+    log(f"phase 12 validation ({GEN_CLI_VAL_VIEWS} view each): fern "
+        f"psnr_nr_fine {fern_psnr:.3f} dB (cache/high built in "
+        f"{cache_s:.1f} s on first read), lego {lego_psnr:.3f} dB; vis_img "
+        f"files hold the renders through the codec, PSNR to them (whole, "
+        f"gt panel) " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} dB"
+                                  for k, v in vis.items())
+        + f"; JPEG reads {jpeg_ms['1008x756']:.1f} ms at "
+        f"1008x756, {jpeg_ms['4032x3024']:.1f} ms at 4032x3024")
+    crops = [real_estate_crop(train_cfg, c) for c in GRAD_SAMPLE_CLOCKS]
+    batch = trainer.to_device(crops[0])
+    profile_step(lambda: trainer.train_step(batch),
+                 "phase 12 step on a real-estate crop")
+    for clock, crop in zip(GRAD_SAMPLE_CLOCKS, crops):
+        grad_check(trainer, dev, weights, crop,
+                   f"training gradients, card vs CPU (a real-estate crop "
+                   f"sample drawn at clock {clock:.0f}: "
+                   f"{list(crop['ref']['imgs'].shape)} ref views, "
+                   f"{crop['que']['coords'].shape[1]} rays through the "
+                   f"sphere, {DN} + {DN} samples)", witness=True)
+    fwd, bwd = real_coord_rows(GA, dev, captured, "phase 12", parent)
+    return launches, backward, fwd, bwd
+
+
+def cv_cli_phase(GA, R, dev):
+    """Phase 13: cost-volume generalization training through the CLI
+    (``CV_CLI_*``) on phase 12's data, validating on fern: steps/s, the
+    cost-volume init net's share of a step (CUDA-event spans), gather
+    launches checked as in phase 12 (no diff gather), psnr_nr_fine and the
+    vis_img files. Returns (launches by instantiation, backward
+    launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_spans = []
+    from neuray_tpu_torch.models.cost_volume import CostVolumeInitNet
+    own_forward = CostVolumeInitNet.forward
+
+    def timed_init(self, *args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = own_forward(self, *args, **kwargs)
+        end.record()
+        if self.training:
+            init_spans.append((start, end))
+        return out
+
+    CostVolumeInitNet.forward = timed_init
+    try:
+        trainer, steps, launches, backward, val, _, _, wall = cli_training(
+            GA, R, dev, CV_CLI_CFG, CV_CLI_CUTS, ("llff_fern",),
+            GEN_CLI_VAL_VIEWS, "phase 13")
+    finally:
+        CostVolumeInitNet.forward = own_forward
+    step_s = check_cli_steps(steps, CV_CLI_STEPS, 0, "cost-volume training")
+    torch.cuda.synchronize()
+    init_ms = [a.elapsed_time(b) for a, b in init_spans]
+    timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
+    share = np.median(init_ms[GEN_CLI_WARMUP:len(steps)]) / (1e3 * step_s)
+    fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
+    vis = {k: check_vis(trainer.model_dir, k, v, CV_CLI_STEPS)
+           for k, v in val.items()}
+    log(f"phase 13 training: {CV_CLI_STEPS} steps ({GEN_CLI_WARMUP} warm-up)"
+        f": step median {step_s:.4f} s = {1 / step_s:.2f} steps/s (range "
+        f"{timed.min():.4f}-{timed.max():.4f} s), cost-volume init net "
+        f"median {np.median(init_ms[GEN_CLI_WARMUP:len(steps)]):.1f} ms a "
+        f"step (share {share:.3f} of the step), peak memory "
+        f"{steps[-1]['peak'] / 2**30:.2f} GiB, run {wall:.1f} s; phase "
+        f"{launches} + {backward} backward; fern psnr_nr_fine "
+        f"{fern_psnr:.3f} dB, vis_img (whole, gt panel) "
+        + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f} dB"
+                    for k, v in vis.items()))
+    return launches, backward
+
+
 def load_gather(root):
     """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
     module of its own (it builds its kernel under root/build)."""
@@ -1945,6 +2718,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="a checkout of an earlier commit: time "
                     "its backward beside this one's on every backward row")
+    ap.add_argument("--grad-sweep", type=int, default=0, metavar="N",
+                    help="run only phase 12's gradient check, with its f64 "
+                    "witness, on the crops of N clocks (grad_sweep)")
+    ap.add_argument("--out", help="--grad-sweep's table, a file")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
@@ -1971,6 +2748,9 @@ def main():
     GA.load_library()
     log(f"build: gather_bilinear_border.cu in "
         f"{time.perf_counter() - t0:.2f} s")
+    if a.grad_sweep:
+        grad_sweep(dev, a.grad_sweep, a.out)
+        return
     parent = None
     if a.parent:
         parent = load_gather(a.parent)
@@ -2055,12 +2835,16 @@ def main():
         weights_cv, parent, FT_CV_PROFILE, GEN_CV_PROFILE, 0, False,
         "finetuning from the cost volume", "phase 11")
     counted.append(cv_ft_launches)
+    gen_launches, gen_backward, gen_rows, gen_bwd_rows = gen_cli_phase(
+        GA, R, dev, weights, parent)
+    cv_cli_launches, cv_cli_backward = cv_cli_phase(GA, R, dev)
+    counted += [gen_launches, cv_cli_launches]
     kernel_stats["f32"]["max_abs_err"] = max(
         [kernel_stats["f32"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in cv_rows])
-    backward_stats["max_abs_err"] = max(backward_stats["max_abs_err"],
-                                        ft_fine["max_abs_err"],
-                                        cv_ft_fine["max_abs_err"])
+        + [r["max_abs_err"] for r in cv_rows + gen_rows])
+    backward_stats["max_abs_err"] = max(
+        [backward_stats["max_abs_err"], ft_fine["max_abs_err"],
+         cv_ft_fine["max_abs_err"]] + [r["max_abs_err"] for r in gen_bwd_rows])
 
     source = "neuray_tpu_torch/csrc/gather_bilinear_border.cu"
     log(json.dumps({"kernels": [{
@@ -2070,7 +2854,8 @@ def main():
         **kernel_stats[k]} for k in ("f32", "bf16", "u8")] + [{
         "name": "gather_bilinear_border_backward_f32", "route": "cuda",
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
-        "launches": backward_launches + ft_backward + cv_ft_backward,
+        "launches": (backward_launches + ft_backward + cv_ft_backward
+                     + gen_backward + cv_cli_backward),
         **backward_stats,
         "real_ft_fine": {"shape": ft_fine["shape"],
                          "points": ft_fine["points"],

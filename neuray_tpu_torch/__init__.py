@@ -14,11 +14,16 @@ Layout (mirrors ``neuray_tpu``):
                 the finetuning model (``ft.py``)
     train/      losses, learning-rate schedules, metrics, the trainers
                 (generalization and finetuning)
-    data/       the synthetic sphere scene and training set, the
-                NeRF-synthetic database, imgs_info, view selection,
-                COLMAP's dense maps (numpy)
-    utils/      flat-npz weight loading, the flax <-> torch bridge, PNG
-    csrc/       CUDA C++ kernels for sm_90a, built at first use
+    data/       every dataset family of the JAX package and its
+                training datasets (GeneralRendererDataset, the synthetic
+                spheres), imgs_info, view selection, COLMAP's files,
+                numpy copies of cv2's resizes, scenes fabricated on disk
+    utils/      flat-npz weight loading, the flax <-> torch bridge, the
+                image codecs (PNG, baseline JPEG), a YAML reader
+    csrc/       CUDA C++ kernels for sm_90a and the C++ image codec,
+                built at first use
+    run_training.py   the training CLI (``python -m
+                neuray_tpu_torch.run_training --cfg <yaml>``)
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,7 @@
 of ``neuray_tpu/data/imgs_info.py``; reference utils/imgs_info.py and
 utils/base_utils.py). Channels-last, coords (x, y) float32. The random
 draws call ``np.random.RandomState`` in the JAX package's order, so one
-seed draws the same rays in both.
-
-``random_crop``, ``random_flip`` and ``build_render_imgs_info`` wait for
-the training datasets and the CLIs (ROADMAP items 8f and 7).
+seed draws the same rays and crops in both.
 """
 from __future__ import annotations
 
@@ -111,9 +108,64 @@ def build_imgs_info(database, ref_ids: List[str], pad_interval: int = -1,
     return info
 
 
+def build_render_imgs_info(que_pose: np.ndarray, que_K: np.ndarray,
+                           que_shape, que_depth_range) -> Dict:
+    """The query info of one pose rendered over its full pixel grid."""
+    h, w = int(que_shape[0]), int(que_shape[1])
+    coords = np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+    coords = coords.reshape([1, -1, 2]).astype(np.float32)
+    return {"poses": que_pose.astype(np.float32)[None],
+            "Ks": que_K.astype(np.float32)[None],
+            "coords": coords,
+            "depth_range": np.asarray(que_depth_range, np.float32)[None],
+            "shape": (h, w)}
+
+
 def imgs_info_slice(imgs_info: Dict, indices) -> Dict:
     """Select views along axis 0."""
     return {k: v[indices] for k, v in imgs_info.items()}
+
+
+def random_crop(ref_imgs_info: Dict, que_imgs_info: Dict, target_size,
+                rng: Optional[np.random.RandomState] = None):
+    """One random window of target_size (h, w) cut from the ref and the
+    query views alike, the principal points moved with it; nothing is cut
+    when the window does not fit."""
+    rng = rng or np.random
+    h, w = ref_imgs_info["imgs"].shape[1:3]
+    out_h, out_w = target_size
+    if out_w >= w or out_h >= h:
+        return ref_imgs_info, que_imgs_info
+    center_h = rng.randint(low=out_h // 2 + 1, high=h - out_h // 2 - 1)
+    center_w = rng.randint(low=out_w // 2 + 1, high=w - out_w // 2 - 1)
+    h0, w0 = center_h - out_h // 2, center_w - out_w // 2
+
+    def crop_info(info):
+        for k in ("imgs", "depth", "true_depth", "masks"):
+            if k in info and info[k] is not None:
+                info[k] = info[k][:, h0:h0 + out_h, w0:w0 + out_w]
+        Ks = info["Ks"].copy()
+        Ks[:, 0, 2] -= w0
+        Ks[:, 1, 2] -= h0
+        info["Ks"] = Ks
+        return info
+
+    return crop_info(ref_imgs_info), crop_info(que_imgs_info)
+
+
+def random_flip(ref_imgs_info: Dict, que_imgs_info: Dict):
+    """The ref and query views flipped left to right, the Ks with them."""
+    def flip_info(info):
+        for k in ("imgs", "depth", "true_depth", "masks"):
+            if k in info and info[k] is not None:
+                info[k] = np.ascontiguousarray(np.flip(info[k], 2))
+        Ks = info["Ks"].copy()
+        Ks[:, 0, :] *= -1
+        Ks[:, 0, 2] += info["imgs"].shape[2] - 1
+        info["Ks"] = Ks
+        return info
+
+    return flip_info(ref_imgs_info), flip_info(que_imgs_info)
 
 
 def get_coords_mask(que_mask: np.ndarray, train_ray_num: int,

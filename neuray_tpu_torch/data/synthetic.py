@@ -120,9 +120,10 @@ def make_sphere_scene(rng: np.random.RandomState, rfn: int, h: int,
 
 
 def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
-                                size: int = 800) -> None:
+                                size: int = 800, scene: str = "sphere"
+                                ) -> None:
     """Write the unit sphere as the NeRF-synthetic scene folder
-    ``{root}/nerf_synthetic/sphere``: ``n_train`` train views ``r_<i>``,
+    ``{root}/nerf_synthetic/{scene}``: ``n_train`` train views ``r_<i>``,
     the val views of ``nerf_syn_val_ids`` and the test view ``r_0``, each
     a size x size RGBA PNG (alpha the hit mask, black background) from a
     random camera on the radius-4 shell (``look_at_camera``, in split
@@ -132,7 +133,7 @@ def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
     ``colmap_depth/train-r_<i>.png.geometric.bin``. Each view is rendered
     with the pose and K that ``NeRFSyntheticDatabase`` reads back."""
     rng = np.random.RandomState(SCENE_SEED)
-    base = Path(root) / "nerf_synthetic" / "sphere"
+    base = Path(root) / "nerf_synthetic" / scene
     (base / "colmap_depth").mkdir(parents=True, exist_ok=True)
     focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
     K = np.asarray([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],

@@ -32,6 +32,7 @@ from neuray_tpu_torch.data.imgs_info import build_imgs_info, get_coords_mask
 from neuray_tpu_torch.data.view_select import compute_nearest_camera_indices
 from neuray_tpu_torch.models.renderer import (
     NeurayRenderer, RenderConfig, render_rays)
+from neuray_tpu_torch.utils.config import load_cfg
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
 
@@ -128,7 +129,7 @@ class FtRenderer(nn.Module):
 
     def init_params(self, seed: int = 0) -> None:
         """Set the trainable state. With ``gen_cfg`` (the generalization
-        config as a dict: the card's machine has no YAML reader): every
+        config as a dict, or the path of its YAML file): every
         module but the init net from that model's checkpoint
         (``load_gen_state`` under ``output_root``), ray_feats from its
         init net, depth or cost volume (``init_ray_feats_from_gen``).
@@ -147,9 +148,7 @@ class FtRenderer(nn.Module):
                 init_like_flax(self.net)
             return
         if not isinstance(gen_cfg, dict):
-            raise NotImplementedError(
-                "gen_cfg as a path needs a YAML reader, which is not ported "
-                "yet (ROADMAP item 7): pass the parsed config")
+            gen_cfg = load_cfg(gen_cfg)
         state = load_gen_state(self.cfg["output_root"], gen_cfg["name"])
         with torch.random.fork_rng(devices=[]):
             gen = NeurayRenderer(RenderConfig.from_cfg(gen_cfg))

@@ -81,7 +81,8 @@ class FtTrainer(BaseTrainer):
         """The held-out views (``FtRenderer.validate_view``), logged to
         ``val.txt``; none without ``use_validation``."""
         if self.cfg["use_validation"]:
-            yield "val", self._val_views(make_ft_render_fn(self.ft))
+            yield "val", self.cfg["name"], self._val_views(
+                make_ft_render_fn(self.ft))
 
     def _val_views(self, render_fn):
         for vi in range(len(self.ft.val_ids)):

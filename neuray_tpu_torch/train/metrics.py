@@ -1,18 +1,22 @@
-"""Validation metrics: PSNR and SSIM on 8-bit images (port of
-``neuray_tpu/train/metrics.py``; reference network/metrics.py).
+"""Validation metrics: PSNR and SSIM on 8-bit images, and the validation
+image dumps (port of ``neuray_tpu/train/metrics.py``; reference
+network/metrics.py).
 
 SSIM uses uniform 11x11 windows as skimage's ``structural_similarity``
 does by default; the JAX package's ``cv2.blur(..., BORDER_REFLECT)`` is
-``scipy.ndimage.uniform_filter(mode="reflect")`` here (the card's
-machine has no cv2). The validation image dump (``vis_img``) is not
-ported.
+``scipy.ndimage.uniform_filter(mode="reflect")`` here, and its
+``cv2.imwrite`` is ``utils/imageio.py``'s ``imwrite`` (the card's machine
+has no cv2).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import numpy as np
 from scipy.ndimage import uniform_filter
+
+from neuray_tpu_torch.utils.imageio import imwrite
 
 
 def color_map_backward(rgb: np.ndarray) -> np.ndarray:
@@ -92,7 +96,29 @@ class PSNR_SSIM:
         return outputs
 
 
-name2metrics = {"psnr_ssim": PSNR_SSIM}
+class VisualizeImage:
+    """``vis_img``: the ground truth and each rendered image side by side,
+    written to ``<output_root>/<model_name>/step-<step>-index-<i>.<ext>``,
+    a PNG at 64x64 and below, a JPEG (quality 95) above."""
+
+    def __init__(self, cfg: Dict[str, Any]):
+        self.cfg = cfg
+
+    def __call__(self, data_pr, data_gt, step, *, data_index=0,
+                 model_name="model", output_root="data/vis_val", **kwargs):
+        h, w = data_gt["que_shape"]
+        imgs = [color_map_backward(np.asarray(data_pr[key]).reshape(h, w, 3))
+                for key in ("pixel_colors_gt", "pixel_colors_nr",
+                            "pixel_colors_dr", "pixel_colors_nr_fine",
+                            "pixel_colors_dr_fine") if key in data_pr]
+        os.makedirs(f"{output_root}/{model_name}", exist_ok=True)
+        ext = "png" if (h <= 64 and w <= 64) else "jpg"
+        imwrite(f"{output_root}/{model_name}/step-{step}-index-"
+                f"{data_index}.{ext}", np.concatenate(imgs, axis=1))
+        return {}
+
+
+name2metrics = {"psnr_ssim": PSNR_SSIM, "vis_img": VisualizeImage}
 
 
 def psnr_nr(results):

@@ -70,7 +70,8 @@ class BaseTrainer:
     with no checkpoint to resume), ``_load_state`` (a checkpoint's
     ``params``), ``_batches`` (the batches from a step to ``total_step``),
     ``_losses`` (a batch -> its losses) and ``_val_sets`` (each val set's
-    log name and its views' outputs)."""
+    log name, the name of its ``vis_img`` folder and its views'
+    outputs)."""
 
     default_cfg: Dict[str, Any] = {}
     # also validate at the last step (the gen trainer does; finetuning
@@ -206,16 +207,19 @@ class BaseTrainer:
     def validate(self, step: int):
         """Each val set's views (``_val_sets``: outputs as numpy with
         ``pixel_colors_gt``, and the image's (h, w)) through the val
-        metrics; log their means to ``<name>.txt`` and return the key
-        metric of the last set (None without val sets)."""
+        metrics (``vis_img`` writes under ``<model_dir>/vis_val``); log
+        their means to ``<name>.txt`` and return the key metric of the last
+        set (None without val sets)."""
         key_vals = []
-        for name, views in self._val_sets():
+        for name, vis_name, views in self._val_sets():
             results: Dict[str, list] = {}
             t0 = time.time()
-            for outputs, que_shape in views:
+            for i, (outputs, que_shape) in enumerate(views):
                 for metric in self.val_metrics:
-                    for k, v in metric(outputs, {"que_shape": que_shape},
-                                       step).items():
+                    for k, v in metric(
+                            outputs, {"que_shape": que_shape}, step,
+                            data_index=i, model_name=vis_name,
+                            output_root=f"{self.model_dir}/vis_val").items():
                         results.setdefault(k, []).append(v)
             if not results:
                 continue
@@ -324,13 +328,15 @@ class Trainer(BaseTrainer):
 
     def _val_sets(self):
         """Every view of each val set rendered with ``render_full``; logged
-        to ``val-<name>.txt``."""
+        to ``val-<name>.txt``, its ``vis_img`` dumps under
+        ``<model name>-<name>``."""
         for val_set in self.cfg["val_set_list"]:
             name = val_set["name"]
             if name not in self._val_datasets:
                 self._val_datasets[name] = name2dataset[val_set["type"]](
                     {**val_set.get("cfg", {})}, False)
-            yield f"val-{name}", self._val_views(self._val_datasets[name])
+            yield (f"val-{name}", f'{self.cfg["name"]}-{name}',
+                   self._val_views(self._val_datasets[name]))
 
     def _val_views(self, dataset):
         for i in range(len(dataset)):

@@ -1,16 +1,16 @@
-"""PNG files with zlib and numpy alone: the port's image reader and writer
-(the JAX package reads and writes through ``cv2``, which the card's
-machine does not have).
+"""PNG files with zlib, numpy and the port's C++ image helper
+(``utils/codec.py``): the port's PNG reader and writer (the JAX package
+reads and writes through ``cv2``, which the card's machine does not have).
 
-``read_png`` takes 8-bit, non-interlaced gray, RGB and RGBA files with any
-of the five row filters and returns uint8 [h, w] (gray), [h, w, 3] (RGB)
-or [h, w, 4] (RGBA), channels in file order (RGB(A)), as the JAX
-package's ``_imread`` returns them. None, Sub (a running sum mod 256) and
-Up are vectorized; Average and Paeth depend on the pixel to their left
-and loop over each row's bytes in Python.
+``read_png`` takes non-interlaced 8-bit gray, RGB and RGBA files and
+16-bit gray files, with any of the five row filters (undone in C++:
+Average and Paeth depend on the byte to their left), and returns uint8
+[h, w] (gray), [h, w, 3] (RGB) or [h, w, 4] (RGBA), channels in file
+order (RGB(A)), or uint16 [h, w] for 16-bit gray, as the JAX package's
+``_imread`` (``cv2.IMREAD_UNCHANGED``) returns them.
 
-``write_png`` writes uint8 RGB or RGBA, every row unfiltered (filter
-None).
+``write_png`` writes uint8 gray, RGB or RGBA and uint16 gray, every row
+unfiltered (filter None).
 """
 from __future__ import annotations
 
@@ -19,9 +19,11 @@ import zlib
 
 import numpy as np
 
+from neuray_tpu_torch.utils.codec import png_unfilter
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}             # color type -> channels
-_COLOR_TYPE = {3: 2, 4: 6}                  # channels -> color type
+_COLOR_TYPE = {1: 0, 3: 2, 4: 6}            # channels -> color type
 
 
 def _chunks(data: bytes):
@@ -35,39 +37,6 @@ def _chunks(data: bytes):
             raise ValueError(f"PNG chunk {kind!r}: bad CRC")
         yield kind, body
         pos += 12 + length
-
-
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
-def _unfilter_row(kind: int, row: np.ndarray, prior: np.ndarray,
-                  bpp: int) -> np.ndarray:
-    """One filtered row (uint8, no filter byte) -> its raw bytes, given
-    the previous row's raw bytes (zeros above the first row)."""
-    if kind == 0:
-        return row
-    if kind == 1:
-        return np.add.accumulate(row.reshape(-1, bpp), axis=0,
-                                 dtype=np.uint8).reshape(-1)
-    if kind == 2:
-        return row + prior
-    if kind not in (3, 4):
-        raise ValueError(f"unknown PNG row filter {kind}")
-    out = bytearray(row.tobytes())
-    up = prior.tolist()
-    for i in range(len(out)):
-        left = out[i - bpp] if i >= bpp else 0
-        if kind == 3:
-            pred = (left + up[i]) >> 1
-        else:
-            pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
-        out[i] = (out[i] + pred) & 0xFF
-    return np.frombuffer(bytes(out), np.uint8)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -88,35 +57,38 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, compression, filtering, interlace = header
-    if (depth != 8 or color not in _CHANNELS or compression or filtering
-            or interlace):
+    if ((depth, color) not in ((8, 0), (8, 2), (8, 6), (16, 0))
+            or compression or filtering or interlace):
         raise NotImplementedError(
             f"{path}: bit depth {depth}, color type {color}, interlace "
-            f"{interlace}; only 8-bit non-interlaced gray, RGB and RGBA")
-    bpp = _CHANNELS[color]
-    stride = w * bpp
+            f"{interlace}; only non-interlaced 8-bit gray, RGB and RGBA "
+            "and 16-bit gray")
+    c = _CHANNELS[color]
+    bpp = c * depth // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
+    if raw.size != h * (w * bpp + 1):
         raise ValueError(f"{path}: {raw.size} bytes of pixel data for "
                          f"{w}x{h}x{bpp}")
-    rows = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior,
-                                       bpp)
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    out = png_unfilter(raw, h, w * bpp, bpp)
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w)
+    return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write uint8 img [h, w, 3] (RGB) or [h, w, 4] (RGBA) as an 8-bit
-    PNG, every row with filter None."""
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"write_png takes uint8 [h, w, 3 or 4], got "
-                         f"{img.dtype} {img.shape}")
-    h, w, c = img.shape
-    body = np.concatenate(
-        [np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], 1).tobytes()
+    """Write uint8 img [h, w] (gray), [h, w, 3] (RGB) or [h, w, 4] (RGBA)
+    as an 8-bit PNG, or uint16 img [h, w] as a 16-bit gray one, every row
+    with filter None."""
+    gray16 = img.dtype == np.uint16 and img.ndim == 2
+    if not gray16 and (img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4)))):
+        raise ValueError(f"write_png takes uint8 [h, w], [h, w, 3 or 4] or "
+                         f"uint16 [h, w], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    rows = (img.astype(">u2") if gray16 else img).reshape(h, -1).view(
+        np.uint8)
+    body = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
 
     def chunk(kind: bytes, payload: bytes) -> bytes:
         return (struct.pack(">I", len(payload)) + kind + payload
@@ -124,8 +96,9 @@ def write_png(path: str, img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h,
+                                             16 if gray16 else 8,
                                              _COLOR_TYPE[c], 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(body))
+                + chunk(b"IDAT", zlib.compress(body, 1))
                 + chunk(b"IEND", b""))
 

@@ -485,7 +485,7 @@ def test_synthetic_dataset_equals_jax(is_train):
             assert flat_o[k].dtype == v.dtype, k
             assert flat_o[k].shape == v.shape, k
             assert flat_o[k].tobytes() == v.tobytes(), k
-    assert D.name2dataset.keys() == {"synthetic"}
+    assert D.name2dataset.keys() == jD.name2dataset.keys()
 
 
 def test_metrics_match_jax():
@@ -593,9 +593,47 @@ def test_chip_smoke_train_profile_is_the_shipped_training_config():
         "depth", 64, 64, False, False, True)
 
 
+@pytest.mark.parametrize("name, relus", [("image_encoder", 1 + 2 * 9),
+                                         ("init_net.res_net", 1 + 2 * 6)])
+def test_chip_smoke_witness_replays_relu_masks(weights, name, relus):
+    """chip_smoke.py phase 12's f64 witness of the renderer's ResUNets
+    (``WITNESSED``): given an f32 forward's ReLU masks (``relu_tape``), its
+    parameter gradients are that forward's within f32 rounding (1e-4 of
+    each leaf's norm, plus 1e-6 of the largest: a conv bias before an
+    InstanceNorm has an exactly zero gradient, which f32 leaves as
+    rounding); the witness makes as many ReLU calls as it replays (the
+    stem's and two a block) and ``F.relu`` comes back. The trained
+    encoder on the synthetic sample's 3 views at 64x64 (the init net's on
+    its 12 channels: images, depth and random diff features), a random
+    output gradient."""
+    assert name in chip_smoke.WITNESSED
+    enc = port_renderer(weights).get_submodule(name)
+    rng = np.random.RandomState(0)
+    imgs = sphere_sample()["ref"]["imgs"]
+    if name != "image_encoder":
+        imgs = np.concatenate([imgs, rng.rand(3, 64, 64, 9)], -1)
+    imgs = t(imgs.astype(np.float32))
+    grad = t(rng.randn(3, 16, 16, 32).astype(np.float32))
+    relu = torch.nn.functional.relu
+    masks, restore = chip_smoke.relu_tape(enc)
+    try:
+        enc(imgs).backward(grad)
+    finally:
+        restore()
+    assert torch.nn.functional.relu is relu and len(masks) == relus
+    witness, _, used = chip_smoke.encoder_f64(enc, imgs, grad, masks=masks,
+                                              prefix=name)
+    assert torch.nn.functional.relu is relu and len(used) == relus
+    floor = 1e-6 * max(w.norm() for w in witness.values())
+    for n, p in enc.named_parameters():
+        w = witness[f"{name}.{n}"]
+        assert (p.grad.double() - w).norm() <= 1e-4 * w.norm() + floor, n
+
+
 # ---------------- imports ----------------
 
-FORBIDDEN = ("jax", "flax", "yaml", "cv2", "neuray_tpu", "optax", "orbax")
+FORBIDDEN = ("jax", "flax", "yaml", "cv2", "PIL", "neuray_tpu", "optax",
+             "orbax")
 
 
 def imported_modules(path):

@@ -167,8 +167,9 @@ def test_trainer_needs_a_device(tmp_path, monkeypatch):
     assert T.Trainer(make_cfg(tmp_path), device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
         T.Trainer(make_cfg(tmp_path, n_devices=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="vis_img"):
-        T.Trainer(make_cfg(tmp_path, val_metric=["psnr_ssim", "vis_img"]),
+    with pytest.raises(NotImplementedError, match="no_such_metric"):
+        T.Trainer(make_cfg(tmp_path,
+                           val_metric=["psnr_ssim", "no_such_metric"]),
                   device="cpu")
 
 
