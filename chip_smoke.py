@@ -101,6 +101,18 @@ Phases, one line each, any failure raising (exit code != 0):
      (``configs/train/gen/neuray_gen_cost_volume_train.yaml``, 15 steps,
      validating on fern): steps/s and the cost-volume init net's share of
      a step.
+ 14. the render and eval CLIs (``cli_phase``) on phase 9's scene with the
+     trained weights as the gen checkpoint: ``python -m
+     neuray_tpu_torch.render`` with ``configs/gen/neuray_gen_depth.yaml``
+     on 2 eval views, with ``neuray_gen_depth_fast.yaml`` (auto_focus and
+     its audit log) on 3, and ``--render_type ft`` on one pose from phase
+     9's finetuned checkpoint; every frame's JPEGs equal to its driver
+     called directly, its gather launches held to its chunk counts, one
+     encode a ref set, s a frame, encode s and JPEG write ms; a rerun
+     resumes and rewrites the audit log; ``python -m neuray_tpu_torch.eval``
+     on the frames (its PSNR that of the files, GT-PSNR >= 18 dB, the FT
+     frame's >= 24 dB, eval s);
+     then ``neuray_tpu_torch/selfcheck.py``'s render and FT self-checks.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``.
@@ -251,6 +263,8 @@ FT_CUTS = dict(database_name="nerf_synthetic/sphere/black_800",
                validate_initialization=False, val_metric=["psnr_ssim"],
                train_log_step=10)
 FT_TRAIN_VIEWS = 100
+# phase 14 renders the test views phase 9 writes beside its train views
+CLI_TEST_VIEWS = 3
 # the card-vs-CPU gradient check's reduced scene: 8 train views at 128x128,
 # 256 query rays, all through the sphere (foreground_ratio 1)
 FT_GRAD_SCENE = {"n_train": 8, "size": 128}
@@ -951,7 +965,7 @@ def in_situ(R, renderer, ref_c, que, idx, windows=None, bound=1e-4):
         raise RuntimeError(f"card and CPU passes differ: {held}")
 
 
-def expected_fast_launches(out, n_rays, n_probe):
+def expected_fast_launches(out, n_rays, n_probe, chunk=CHUNK):
     """Gather launches implied by ``render_frame_probe_auto``'s own chunk
     counts: 1 for the encode's half-grid diff gather, and 2 (rgb, then
     the 64-ch map) per chunk pass. Per audit rung: the strided probe over
@@ -960,7 +974,7 @@ def expected_fast_launches(out, n_rays, n_probe):
     focused render, 2 passes over the kept rays, or on fallback the exact
     coarse pass over every ray and the fine pass over the kept ones."""
     def chunks(n):
-        return -(-n // CHUNK)
+        return -(-n // chunk)
 
     passes = 0
     for rung in out["audit_trail"]:
@@ -1942,16 +1956,9 @@ def train_phase(GA, dev, root, weights, parent=None):
 def write_gen_checkpoint(weights, output_root, profile=GEN_PROFILE):
     """The gen model of ``profile`` with the trained weights (``weights``:
     the flax tree), saved in ``Trainer._save``'s format where
-    ``FtRenderer.init_params`` reads it."""
-    from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
-    from neuray_tpu_torch.utils.params import load_flax_params
-    gen = NeurayRenderer(RenderConfig.from_cfg(profile))
-    load_flax_params(gen, weights)
-    model_dir = Path(output_root) / profile["name"]
-    model_dir.mkdir(parents=True, exist_ok=True)
-    torch.save({"step": 0, "best_metric": -1e9, "params": gen.state_dict(),
-                "opt_state": torch.optim.Adam(gen.parameters()).state_dict(),
-                "opt_count": 0}, model_dir / "ckpt.pt")
+    ``FtRenderer.init_params`` and the render CLI read it."""
+    from neuray_tpu_torch.selfcheck import write_gen_checkpoint as write
+    write(output_root, profile, weights)
 
 
 # the gathers of one finetuning step, by map (shape, takes a gradient):
@@ -1997,7 +2004,8 @@ def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
     t0 = time.perf_counter()
     if write:
         shutil.rmtree(data_root, ignore_errors=True)
-        write_nerf_synthetic_sphere(str(data_root), FT_TRAIN_VIEWS, H)
+        write_nerf_synthetic_sphere(str(data_root), FT_TRAIN_VIEWS, H,
+                                    n_test=CLI_TEST_VIEWS)
     t_write = time.perf_counter() - t0
     cfg = {**profile, **FT_CUTS, "output_root": str(work)}
     shutil.rmtree(work / cfg["name"], ignore_errors=True)
@@ -2307,6 +2315,39 @@ def sample_seconds(cfg, families, n=3):
             times.append(time.perf_counter() - t0)
         out[family] = float(np.median(times))
     return out
+
+
+SAMPLE_FAMILIES = ("dtu_train", "real_estate")
+
+
+def sample_seconds_beside(parent, families=SAMPLE_FAMILIES, n=5):
+    """The host's seconds a sample of each family (``sample_seconds``,
+    the median of n) made by the parent checkout's data layer and by this
+    one's, on phase 12's data, each in a process of its own started in
+    its checkout, in turns: parent, this, this, parent. Returns the lines
+    it printed."""
+    here = Path(__file__).resolve().parent
+    data = here / "build" / "chip_smoke" / "data"
+    t0 = time.perf_counter()
+    write_cli_data(data)
+    log(f"phase 12 data written in {time.perf_counter() - t0:.1f} s")
+    code = ("import json, sys; sys.path.insert(0, '.'); import chip_smoke as "
+            "cs; from neuray_tpu_torch.utils.config import load_cfg; cfg = "
+            f"load_cfg({GEN_CLI_CFG!r})['train_dataset_cfg']; print(json."
+            f"dumps(cs.sample_seconds(cfg, {list(families)!r}, {n})))")
+    lines = []
+    for label, root in (("parent", parent), ("this", here), ("this", here),
+                        ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", code], cwd=str(root), capture_output=True,
+            text=True, env={**os.environ, "NEURAY_DATA_ROOT": str(data)})
+        if proc.returncode:
+            raise RuntimeError(f"{root}: {proc.stderr[-2000:]}")
+        secs = json.loads(proc.stdout.strip().splitlines()[-1])
+        lines.append(f"host s a sample ({label}, {root}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in secs.items()))
+        log(lines[-1])
+    return lines
 
 
 def cli_training(GA, R, dev, cfg_path, cuts, val_keep, view_cut, what):
@@ -2701,6 +2742,328 @@ def cv_cli_phase(GA, R, dev):
     return launches, backward
 
 
+# phase 14: the render and eval CLIs on phase 9's scene (its 800x800
+# sphere, 100 train views with depth maps and CLI_TEST_VIEWS test views)
+CLI_DATABASE = "nerf_synthetic/sphere/black_800"
+CLI_RAY_NUM = 4096            # the render CLI's default --ray_num
+CLI_EXACT_FRAMES = 2
+CLI_FAST_FRAMES = 3
+CLI_FT_POSES = "inter_8"      # its first pose is the first train view's
+# the floor of the gen frames' GT-PSNR: with the trained weights this
+# scene's eval views render at 19.6-22.4 dB through the CLI (the 8
+# nearest of 100 views at lego's field of view, the NeRF-synthetic
+# database's depth range (2, 6)), below phase 4's 26.1 dB on its own
+# view; a broken route lands far lower. The FT frame, from phase 9's
+# finetuned model, is held to PSNR_FLOOR.
+CLI_GEN_PSNR_FLOOR = 18.0
+
+
+def cli_recorder(GA, R, RC):
+    """Wrap the render CLI's ``save_renderings``, ``imwrite`` and the
+    scene encode to record, for each frame it saves: its outputs, the
+    gather launches by instantiation and the encodes since the run began
+    (``GA.reset_launches`` at its start), and its seconds since the last
+    frame; and each encode's and each JPEG's time. Returns (the record,
+    a function that restores the wrapped three)."""
+    rec = {}
+    save, imwrite, encode = RC.save_renderings, RC.imwrite, R.encode_ref
+
+    def timed_encode(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        rec["encode_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_imwrite(path, img):
+        t0 = time.perf_counter()
+        imwrite(path, img)
+        if str(path).endswith(".jpg"):
+            rec["jpeg_ms"].append(1e3 * (time.perf_counter() - t0))
+
+    def recorded_save(output_dir, qi, out, h, w):
+        torch.cuda.synchronize()
+        save(output_dir, qi, out, h, w)
+        now = time.perf_counter()
+        rec["frames"].append({
+            "qi": qi, "out": out, "s": now - rec["t"],
+            "launches": dict(GA.LAUNCHES_BY_DTYPE),
+            "encodes": len(rec["encode_s"])})
+        rec["t"] = now
+
+    RC.save_renderings, RC.imwrite, R.encode_ref = (
+        recorded_save, timed_imwrite, timed_encode)
+
+    def restore():
+        RC.save_renderings, RC.imwrite, R.encode_ref = save, imwrite, encode
+
+    return rec, restore
+
+
+def cli_run(GA, RC, rec, args):
+    """``python -m neuray_tpu_torch.render`` with args (in this process,
+    so that its launches are counted); returns the run's seconds, its
+    frames and the gather launches by instantiation."""
+    GA.reset_launches()
+    torch.cuda.synchronize()
+    rec.update(frames=[], encode_s=[], jpeg_ms=[], t=time.perf_counter())
+    t0 = rec["t"]
+    RC.main(["--database_name", CLI_DATABASE, "--ray_num", str(CLI_RAY_NUM),
+             *args])
+    torch.cuda.synchronize()
+    frames, last = [], {"f32": 0, "bf16": 0, "u8": 0}
+    for f in rec["frames"]:     # per frame: the launches since the last one
+        frames.append({**f, "launches": {k: f["launches"][k] - last[k]
+                                         for k in last}})
+        last = f["launches"]
+    return time.perf_counter() - t0, frames, dict(GA.LAUNCHES_BY_DTYPE)
+
+
+def same_jpeg(path, out, key, what):
+    """The CLI's file at path against the direct driver's frame: equal
+    bytes (the encoder is deterministic, so equal uint8 images)."""
+    from neuray_tpu_torch.models.renderer import _host
+    from neuray_tpu_torch.train.metrics import color_map_backward
+    from neuray_tpu_torch.utils.codec import encode_jpeg
+    img = color_map_backward(_host(out[key]).reshape(H, W, 3))
+    if Path(path).read_bytes() != encode_jpeg(img):
+        raise RuntimeError(f"{what}: {path} is not the direct driver's "
+                           f"{key} frame")
+
+
+def cli_phase(GA, R, dev, work, weights):
+    """Phase 14: the render and eval CLIs on the card at full width, on
+    phase 9's scene (``work/ft_data``) with the trained weights as the
+    gen checkpoint (``cli/data/model/neuray_gen_depth/ckpt.pt``, read
+    through ``load_ckpt_name`` by the fast profile):
+    ``configs/gen/neuray_gen_depth.yaml`` on the first
+    ``CLI_EXACT_FRAMES`` eval views, ``neuray_gen_depth_fast.yaml``
+    (auto_focus, its audit log) on ``CLI_FAST_FRAMES``, and ``--render_type
+    ft`` on the first pose of ``CLI_FT_POSES`` from phase 9's finetuned
+    checkpoint; each frame's JPEGs equal to the same driver called
+    directly on the same pose, refs and weights; each frame's gather
+    launches held to what its chunk counts imply, f32 only, and one
+    encode a ref set; a rerun resumes (renders only the frame whose file
+    was removed) and rewrites the audit log; ``python -m
+    neuray_tpu_torch.eval`` on the exact and fast frames, its PSNR equal
+    to ``compute_psnr`` of the files and >= ``CLI_GEN_PSNR_FLOOR``, the FT
+    frame's against its train view >= ``PSNR_FLOOR``; then both
+    self-checks (``neuray_tpu_torch/selfcheck.py``). Returns the CLI runs'
+    gather launches by instantiation."""
+    from neuray_tpu_torch import eval as E
+    from neuray_tpu_torch import render as RC
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.imgs_info import (
+        build_imgs_info, build_render_imgs_info)
+    from neuray_tpu_torch.data.render_poses import get_render_poses
+    from neuray_tpu_torch.data.view_select import (
+        select_working_views, select_working_views_db)
+    from neuray_tpu_torch.models import ft as FT
+    from neuray_tpu_torch.selfcheck import (
+        selfcheck_ft, selfcheck_render, write_cfg)
+    from neuray_tpu_torch.train.metrics import compute_psnr
+    from neuray_tpu_torch.utils.config import load_cfg
+    from neuray_tpu_torch.utils.imageio import imread_color
+    from neuray_tpu_torch.utils.params import load_flax_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    repo = Path(__file__).resolve().parent
+    cli = work / "cli"
+    shutil.rmtree(cli, ignore_errors=True)
+    cli.mkdir(parents=True)
+    write_gen_checkpoint(weights, cli / "data" / "model", GEN_PROFILE)
+    ft_cfg = {**FT_PROFILE, **FT_CUTS, "output_root": str(work)}
+    ft_cfg_path = write_cfg(cli / "ft.yaml", ft_cfg)
+    exact_cfg = load_cfg(str(repo / "configs" / "gen" /
+                              "neuray_gen_depth.yaml"))
+    fast_cfg = load_cfg(str(repo / "configs" / "gen" /
+                             "neuray_gen_depth_fast.yaml"))
+    root, cwd = DB.DATA_ROOT, os.getcwd()
+    DB.DATA_ROOT = str(work / "ft_data")
+    os.chdir(cli)
+    rec, restore = cli_recorder(GA, R, RC)
+    n_rays = H * W
+    chunks = -(-n_rays // CLI_RAY_NUM)
+    stride = fast_cfg["probe_stride"]
+    n_probe = -(-H // stride) * -(-W // stride)
+    render_dir = Path("data/render") / CLI_DATABASE.replace("/", "_")
+    gt_dir = render_dir / "gt"
+    total = {"f32": 0, "bf16": 0, "u8": 0}
+    try:
+        runs = {}
+        for what, cfg, args in (
+                ("exact", exact_cfg, ["--cfg", str(repo / "configs" / "gen" /
+                                                   "neuray_gen_depth.yaml"),
+                                      "--re", str(CLI_EXACT_FRAMES)]),
+                ("fast", fast_cfg, ["--cfg", str(
+                    repo / "configs" / "gen" / "neuray_gen_depth_fast.yaml"),
+                    "--re", str(CLI_FAST_FRAMES)]),
+                ("ft", ft_cfg, ["--cfg", ft_cfg_path, "--render_type", "ft",
+                                "--pose_type", CLI_FT_POSES, "--re", "1"])):
+            runs[what] = cli_run(GA, RC, rec, args)
+            runs[what] += (list(rec["encode_s"]), list(rec["jpeg_ms"]))
+            for k in total:
+                total[k] += runs[what][2][k]
+            seconds, frames, launches, encode_s, jpeg_ms = runs[what]
+            frame_s = ", ".join(f"{f['s']:.3f}" for f in frames)
+            log(f"CLI {what} ({cfg['name']}): {len(frames)} frames "
+                f"{H}x{W} in {seconds:.2f} s, s a frame {frame_s} (encodes "
+                f"and JPEG writes in), encodes {len(encode_s)} "
+                f"({', '.join(f'{t:.3f}' for t in encode_s)} s), JPEG write "
+                f"ms at {H}x{W} {', '.join(f'{t:.1f}' for t in jpeg_ms)}, "
+                f"gather launches {launches}")
+            if launches["bf16"] or launches["u8"]:
+                raise RuntimeError(f"CLI {what} launched {launches}")
+            prev = 0
+            for f in frames:
+                encoded = f["encodes"] - prev
+                prev = f["encodes"]
+                if what == "fast":
+                    expected = expected_fast_launches(
+                        f["out"], n_rays, n_probe, CLI_RAY_NUM) - 1 + encoded
+                else:
+                    expected = 4 * chunks + (encoded if what == "exact" else 0)
+                if f["launches"]["f32"] != expected or encoded > 1:
+                    raise RuntimeError(
+                        f"CLI {what} frame {f['qi']}: {f['launches']} gather "
+                        f"launches and {encoded} encodes, expected "
+                        f"{expected} f32 and at most one encode")
+
+        # each frame against its driver called directly
+        database = DB.parse_database_name(CLI_DATABASE)
+        ref_ids_all = [i for i in database.get_img_ids(True)
+                       if i.startswith("tr")]
+        test_ids = [i for i in database.get_img_ids() if i.startswith("te")]
+        audit = [json.loads(line) for line in (
+            render_dir / "neuray_gen_depth_fast-eval" / "auto_audit.jsonl"
+        ).read_text().splitlines()]
+        fallback = False
+        for what, cfg, n in (("exact", exact_cfg, CLI_EXACT_FRAMES),
+                             ("fast", fast_cfg, CLI_FAST_FRAMES)):
+            renderer = R.NeurayRenderer(R.RenderConfig.from_cfg(
+                {**cfg, "ray_batch_num": CLI_RAY_NUM}))
+            load_flax_params(renderer, weights)
+            renderer = renderer.to(dev).eval()
+            for qi, img_id in enumerate(test_ids[:n]):
+                pose = database.get_pose(img_id).astype(np.float32)
+                refs = select_working_views_db(database, ref_ids_all,
+                                               pose[None], 8)[0]
+                ref = {k: torch.from_numpy(v).to(dev) for k, v in
+                       build_imgs_info(database, list(refs), 16, True,
+                                       replace_none_depth=True).items()}
+                que = build_render_imgs_info(
+                    pose, database.get_K(img_id), (H, W),
+                    database.get_depth_range(img_id))
+                que.pop("shape")
+                que = {k: torch.from_numpy(v).to(dev) for k, v in que.items()}
+                ref_c = R.encode_ref(renderer, ref)
+                if what == "exact":
+                    out = R.render_rays(renderer, ref_c, que,
+                                        ("pixel_colors_nr",
+                                         "pixel_colors_nr_fine"))
+                elif fallback:
+                    out = R.render_frame_skip_empty(
+                        renderer, ref_c, que,
+                        threshold=cfg["skip_empty_threshold"])
+                else:
+                    start = R._with_probe_sample_num(
+                        renderer, audit[qi]["audit_trail"][0][
+                            "probe_sample_num"])
+                    out = R.render_frame_probe_auto(
+                        start, ref_c, que,
+                        threshold=cfg["skip_empty_threshold"],
+                        image_hw=(H, W), dilate=cfg["probe_dilate"],
+                        focus=True, tol=cfg["skip_auto_tol"],
+                        probe_stride=cfg["probe_stride"])
+                    fallback = out["fallback"] is not None
+                for key in ("pixel_colors_nr", "pixel_colors_nr_fine"):
+                    same_jpeg(render_dir / f"{cfg['name']}-eval" /
+                              f"{qi}-{key[len('pixel_colors_'):]}.jpg",
+                              out, key, f"CLI {what} frame {qi}")
+            del renderer
+        ft = FT.FtRenderer({**ft_cfg, "ray_batch_num": CLI_RAY_NUM}, dev)
+        params = FT.load_gen_state(ft_cfg["output_root"], ft_cfg["name"])
+        ft.set_ray_feats(params["ray_feats"])
+        ft.load_state_dict(params)
+        pose = get_render_poses(ft.database, CLI_FT_POSES)[0]
+        ref_idx = select_working_views(np.asarray(ft.ref_info["poses"]),
+                                       pose[None],
+                                       ft.cfg["neighbor_view_num"], True)[0]
+        idx = torch.from_numpy(ref_idx).to(dev)
+        ref = ft._slice_ref(idx)
+        ref["ray_feats_raw"] = ft.ray_feats.detach().index_select(0, idx)
+        k0 = ft.database.get_img_ids()[0]
+        que = build_render_imgs_info(pose, ft.database.get_K(k0), (H, W),
+                                     ft.ref_info["depth_range"][0])
+        que.pop("shape")
+        que = {k: torch.from_numpy(v).to(dev) for k, v in que.items()}
+        out = FT.make_ft_render_fn(ft)(ref, que)
+        ft_dir = render_dir / f"{ft_cfg['name']}-{CLI_FT_POSES}"
+        for key in ("pixel_colors_nr", "pixel_colors_nr_fine"):
+            same_jpeg(ft_dir / f"0-{key[len('pixel_colors_'):]}.jpg", out,
+                      key, "CLI ft frame 0")
+        ft_psnr = compute_psnr(ft.database.get_image(k0),
+                               imread_color(ft_dir / "0-nr_fine.jpg"))
+        del ft
+        log(f"CLI frames equal the drivers' called directly: "
+            f"{CLI_EXACT_FRAMES} exact, {CLI_FAST_FRAMES} fast, 1 ft (its "
+            f"JPEG against train view {k0}: {ft_psnr:.3f} dB)")
+        if not ft_psnr >= PSNR_FLOOR:
+            raise RuntimeError(f"CLI ft frame GT-PSNR {ft_psnr:.3f} dB < "
+                               f"{PSNR_FLOOR}")
+
+        # resume: only the frame whose file is gone, the audit log anew
+        (render_dir / "neuray_gen_depth_fast-eval" /
+         f"{CLI_FAST_FRAMES - 1}-nr_fine.jpg").unlink()
+        seconds, frames, launches = cli_run(GA, RC, rec, [
+            "--cfg", str(repo / "configs" / "gen" /
+                         "neuray_gen_depth_fast.yaml"),
+            "--re", str(CLI_FAST_FRAMES)])
+        for k in total:
+            total[k] += launches[k]
+        again = [json.loads(line)["frame"] for line in (
+            render_dir / "neuray_gen_depth_fast-eval" / "auto_audit.jsonl"
+        ).read_text().splitlines()]
+        if [f["qi"] for f in frames] != [CLI_FAST_FRAMES - 1] or \
+                again != [CLI_FAST_FRAMES - 1]:
+            raise RuntimeError(f"CLI rerun rendered "
+                               f"{[f['qi'] for f in frames]}, audit log "
+                               f"frames {again}")
+        log(f"CLI rerun: resumed, rendered frame {CLI_FAST_FRAMES - 1} alone "
+            f"in {seconds:.2f} s, audit log rewritten ({again})")
+
+        for what, name in (("exact", "neuray_gen_depth-eval"),
+                           ("fast", "neuray_gen_depth_fast-eval")):
+            t0 = time.perf_counter()
+            scores = E.evaluate(str(render_dir / name), str(gt_dir),
+                                "nr_fine", dev)
+            t_eval = time.perf_counter() - t0
+            want = [compute_psnr(imread_color(gt_dir / f"{qi}.jpg"),
+                                 imread_color(render_dir / name /
+                                              f"{qi}-nr_fine.jpg"))
+                    for qi in range(len(scores["psnr"]))]
+            log(f"CLI eval ({what}): {len(want)} frames in {t_eval:.3f} s, "
+                f"GT-PSNR {', '.join(f'{p:.3f}' for p in scores['psnr'])} "
+                f"dB, SSIM {', '.join(f'{p:.4f}' for p in scores['ssim'])}")
+            if scores["psnr"] != want or len(want) < CLI_EXACT_FRAMES:
+                raise RuntimeError(f"eval CLI PSNR {scores['psnr']}, the "
+                                   f"files' {want}")
+            if not min(want) >= CLI_GEN_PSNR_FLOOR:
+                raise RuntimeError(f"CLI {what} GT-PSNR {min(want):.3f} dB "
+                                   f"< {CLI_GEN_PSNR_FLOOR}")
+    finally:
+        restore()
+        os.chdir(cwd)
+        DB.DATA_ROOT = root
+    t0 = time.perf_counter()
+    selfcheck_render(work / "selfcheck" / "render", 64, dev)
+    selfcheck_ft(work / "selfcheck" / "ft", 64, 20, dev)
+    log(f"self-checks (neuray_tpu_torch/selfcheck.py, 64x64): "
+        f"{time.perf_counter() - t0:.2f} s")
+    return total
+
+
 def load_gather(root):
     """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
     module of its own (it builds its kernel under root/build)."""
@@ -2722,6 +3085,11 @@ def main():
                     help="run only phase 12's gradient check, with its f64 "
                     "witness, on the crops of N clocks (grad_sweep)")
     ap.add_argument("--out", help="--grad-sweep's table, a file")
+    ap.add_argument("--sample-seconds", metavar="DIR",
+                    help="only time the host's making of dtu_train and "
+                    "real_estate samples by DIR's data layer (a checkout "
+                    "of an earlier commit) and this one's, in turns "
+                    "(sample_seconds_beside)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
@@ -2750,6 +3118,9 @@ def main():
         f"{time.perf_counter() - t0:.2f} s")
     if a.grad_sweep:
         grad_sweep(dev, a.grad_sweep, a.out)
+        return
+    if a.sample_seconds:
+        sample_seconds_beside(Path(a.sample_seconds).resolve())
         return
     parent = None
     if a.parent:
@@ -2839,6 +3210,9 @@ def main():
         GA, R, dev, weights, parent)
     cv_cli_launches, cv_cli_backward = cv_cli_phase(GA, R, dev)
     counted += [gen_launches, cv_cli_launches]
+    counted.append(cli_phase(
+        GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
+        weights))
     kernel_stats["f32"]["max_abs_err"] = max(
         [kernel_stats["f32"]["max_abs_err"]]
         + [r["max_abs_err"] for r in cv_rows + gen_rows])

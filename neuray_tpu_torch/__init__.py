@@ -16,14 +16,19 @@ Layout (mirrors ``neuray_tpu``):
                 (generalization and finetuning)
     data/       every dataset family of the JAX package and its
                 training datasets (GeneralRendererDataset, the synthetic
-                spheres), imgs_info, view selection, COLMAP's files,
-                numpy copies of cv2's resizes, scenes fabricated on disk
+                spheres), imgs_info, view selection, render poses,
+                COLMAP's files, cv2's blur and resizes, scenes fabricated
+                on disk
     utils/      flat-npz weight loading, the flax <-> torch bridge, the
                 image codecs (PNG, baseline JPEG), a YAML reader
-    csrc/       CUDA C++ kernels for sm_90a and the C++ image codec,
-                built at first use
+    csrc/       CUDA C++ kernels for sm_90a and the C++ image codec
+                (with cv2's 8-bit blur and resizes), built at first use
     run_training.py   the training CLI (``python -m
                 neuray_tpu_torch.run_training --cfg <yaml>``)
+    render.py, eval.py   the render and eval CLIs (``python -m
+                neuray_tpu_torch.render``, ``python -m
+                neuray_tpu_torch.eval``)
+    selfcheck.py   both CLIs end to end on a fabricated scene
 """
 
 __version__ = "0.1.0"

@@ -20,17 +20,22 @@
 // Sampling factors other than 4:4:4, 4:2:2 (h2v1) and 4:2:0 (h2v2), and
 // files of 2 or 4 components, raise.
 //
-// JPEG encoding writes what cv2.imwrite writes by default: baseline,
-// 4:2:0 (gray: one component), the Annex K tables scaled to the quality
-// as libjpeg scales them, the standard Huffman tables, a JFIF header. The
-// colour conversion and the 2x2 downsampling are libjpeg's; the forward
-// DCT is computed in double precision (libjpeg's is an integer
-// approximation), so the bytes differ from cv2's while the image agrees
-// to within the quantization.
+// JPEG encoding follows libjpeg-turbo's compress path with cv2.imwrite's
+// settings (baseline, 4:2:0 or one gray component, the Annex K tables
+// scaled to the quality, the standard Huffman tables unoptimized, a JFIF
+// header), step by step and in integers, so that the bytes are cv2's:
+//   * the fixed-point RGB -> YCbCr of jccolor.c;
+//   * jcprepct.c's edge expansion (each row group's last image row
+//     repeated, columns expanded right, rows below the image repeated to a
+//     whole iMCU row) and jcsample.c's h2v2_downsample;
+//   * the accurate integer forward DCT (jfdctint.c) and libjpeg-turbo's
+//     reciprocal quantization (jcdctmgr.c);
+//   * jccoefct.c's dummy blocks at the MCU grid's right and bottom edges.
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <algorithm>
 #include <vector>
 
 namespace {
@@ -759,50 +764,122 @@ void scaled_table(const uint8_t* base, int quality, uint16_t* out) {
   }
 }
 
-struct Dct {
-  double c[8][8];
-  Dct() {
-    for (int u = 0; u < 8; ++u)
-      for (int x = 0; x < 8; ++x)
-        c[u][x] = (u ? 0.5 : 0.5 / std::sqrt(2.0)) *
-                  std::cos((2 * x + 1) * u * M_PI / 16);
+// jcdctmgr.c compute_reciprocal for 16-bit DCTELEMs (libjpeg-turbo's SIMD
+// build): a coefficient x is quantized as sign(x) * ((|x| + corr) * recip
+// >> (16 + shift)), which jsimd_quantize and the C quantize() agree on.
+struct Divisors {
+  uint32_t recip[64], corr[64];
+  int shift[64];
+  explicit Divisors(const uint16_t* q) {
+    for (int i = 0; i < 64; ++i) {
+      uint32_t divisor = uint32_t(q[i]) << 3;  // the islow DCT scales by 8
+      int b = 0;
+      while ((divisor >> (b + 1)) != 0) ++b;  // flss(divisor) - 1
+      int r = 16 + b;
+      uint32_t fq = (uint32_t(1) << r) / divisor;
+      uint32_t fr = (uint32_t(1) << r) % divisor;
+      uint32_t c = divisor / 2;
+      if (fr == 0) {  // a power of two
+        fq >>= 1;
+        --r;
+      } else if (fr <= divisor / 2) {
+        ++c;
+      } else {
+        ++fq;
+      }
+      recip[i] = fq & 0xFFFF;
+      corr[i] = c & 0xFFFF;
+      shift[i] = r - 16;
+    }
   }
 };
-const Dct kDct;
 
-void encode_block(const uint8_t* src, int stride, const uint16_t* q,
-                  const Code& dcc, const Code& acc, int& pred, BitWriter& bw) {
-  double tmp[64], f[64];
-  for (int y = 0; y < 8; ++y)
-    for (int u = 0; u < 8; ++u) {
-      double s = 0;
-      for (int x = 0; x < 8; ++x) s += kDct.c[u][x] * (src[y * stride + x] - 128);
-      tmp[y * 8 + u] = s;
+// jfdctint.c jpeg_fdct_islow: the accurate integer forward DCT, output
+// scaled up by 8
+void fdct_islow(int32_t* d) {
+  const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
+                F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
+                F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+  auto descale = [](int64_t x, int n) {
+    return int32_t((x + (int64_t(1) << (n - 1))) >> n);
+  };
+  for (int pass = 0; pass < 2; ++pass) {
+    const int step = pass ? 8 : 1, stride = pass ? 1 : 8;
+    const int odd = pass ? 13 + 2 : 13 - 2;
+    for (int k = 0; k < 8; ++k) {
+      int32_t* p = d + k * stride;
+      int64_t tmp0 = p[0] + p[7 * step], tmp7 = p[0] - p[7 * step];
+      int64_t tmp1 = p[step] + p[6 * step], tmp6 = p[step] - p[6 * step];
+      int64_t tmp2 = p[2 * step] + p[5 * step];
+      int64_t tmp5 = p[2 * step] - p[5 * step];
+      int64_t tmp3 = p[3 * step] + p[4 * step];
+      int64_t tmp4 = p[3 * step] - p[4 * step];
+      int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+      int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+      if (pass) {
+        p[0] = descale(tmp10 + tmp11, 2);
+        p[4 * step] = descale(tmp10 - tmp11, 2);
+      } else {
+        p[0] = int32_t((tmp10 + tmp11) * 4);
+        p[4 * step] = int32_t((tmp10 - tmp11) * 4);
+      }
+      int64_t z1 = (tmp12 + tmp13) * F0541;
+      p[2 * step] = descale(z1 + tmp13 * F0765, odd);
+      p[6 * step] = descale(z1 - tmp12 * F1847, odd);
+      z1 = tmp4 + tmp7;
+      int64_t z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+      int64_t z5 = (z3 + z4) * F1175;
+      tmp4 *= F0298;
+      tmp5 *= F2053;
+      tmp6 *= F3072;
+      tmp7 *= F1501;
+      z1 *= -F0899;
+      z2 *= -F2562;
+      z3 = z3 * -F1961 + z5;
+      z4 = z4 * -F0390 + z5;
+      p[7 * step] = descale(tmp4 + z1 + z3, odd);
+      p[5 * step] = descale(tmp5 + z2 + z4, odd);
+      p[3 * step] = descale(tmp6 + z2 + z3, odd);
+      p[step] = descale(tmp7 + z1 + z4, odd);
     }
-  for (int v = 0; v < 8; ++v)
-    for (int u = 0; u < 8; ++u) {
-      double s = 0;
-      for (int y = 0; y < 8; ++y) s += kDct.c[v][y] * tmp[y * 8 + u];
-      f[v * 8 + u] = s;
-    }
-  int zz[64];
-  for (int k = 0; k < 64; ++k) {
-    int nat = kZigzag[k];
-    zz[k] = int(std::lround(f[nat] / q[nat]));
   }
+}
+
+// jcdctmgr.c forward_DCT for one 8x8 block of samples: level shift, the
+// islow DCT, quantize; coefficients in natural order
+void forward_dct(const uint8_t* src, int stride, const Divisors& dv,
+                 int16_t* coef) {
+  int32_t ws[64];
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x)
+      ws[y * 8 + x] = int32_t(src[y * stride + x]) - 128;
+  fdct_islow(ws);
+  for (int i = 0; i < 64; ++i) {
+    int32_t t = ws[i];
+    uint32_t a = uint32_t(t < 0 ? -t : t);
+    uint32_t v = uint32_t((uint64_t((a + dv.corr[i]) & 0xFFFF) * dv.recip[i]) >>
+                          (16 + dv.shift[i]));
+    coef[i] = int16_t(t < 0 ? -int32_t(v) : int32_t(v));
+  }
+}
+
+// jchuff.c encode_one_block: the DC difference, then the AC run lengths
+void encode_block(const int16_t* coef, const Code& dcc, const Code& acc,
+                  int& pred, BitWriter& bw) {
   auto magnitude = [](int v) {
     int a = v < 0 ? -v : v, s = 0;
     while (a) { ++s; a >>= 1; }
     return s;
   };
-  int diff = zz[0] - pred;
-  pred = zz[0];
+  int diff = coef[0] - pred;
+  pred = coef[0];
   int s = magnitude(diff);
   bw.put(dcc.code[s], dcc.len[s]);
   if (s) bw.put(uint32_t(diff < 0 ? diff - 1 : diff), s);
   int run = 0;
   for (int k = 1; k < 64; ++k) {
-    if (zz[k] == 0) {
+    int v = coef[kZigzag[k]];
+    if (v == 0) {
       ++run;
       continue;
     }
@@ -810,7 +887,6 @@ void encode_block(const uint8_t* src, int stride, const uint16_t* q,
       bw.put(acc.code[0xF0], acc.len[0xF0]);
       run -= 16;
     }
-    int v = zz[k];
     s = magnitude(v);
     int rs = (run << 4) | s;
     bw.put(acc.code[rs], acc.len[rs]);
@@ -819,6 +895,28 @@ void encode_block(const uint8_t* src, int stride, const uint16_t* q,
   }
   if (run) bw.put(acc.code[0], acc.len[0]);
 }
+
+// One component's samples as jcprepct.c hands them to the coefficient
+// controller: rows of width_in_blocks * 8, the image's columns expanded
+// right by replicating the last one, rows below the last replicated to a
+// whole iMCU row.
+struct Plane {
+  std::vector<uint8_t> s;
+  int w = 0, h = 0;  // padded width and height
+  uint8_t* row(int y) { return s.data() + size_t(y) * w; }
+  void init(int pw, int ph) {
+    w = pw;
+    h = ph;
+    s.assign(size_t(pw) * ph, 0);
+  }
+  void expand_right(int y, int from) {
+    uint8_t* r = row(y);
+    for (int x = from; x < w; ++x) r[x] = r[from - 1];
+  }
+  void expand_bottom(int from) {
+    for (int y = from; y < h; ++y) std::memcpy(row(y), row(from - 1), w);
+  }
+};
 
 void put16(std::vector<uint8_t>& o, int v) {
   o.push_back(uint8_t(v >> 8));
@@ -835,6 +933,126 @@ void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t* bits,
   o.push_back(uint8_t(cls_id));
   for (int l = 1; l <= 16; ++l) o.push_back(bits[l]);
   for (int i = 0; i < total; ++i) o.push_back(vals[i]);
+}
+
+}  // namespace
+
+namespace {
+
+// cv2's saturate_cast<uchar>(float): round half to even, clamp
+inline uint8_t round_u8(float v) {
+  const int r = int(std::nearbyint(v));
+  return uint8_t(r < 0 ? 0 : r > 255 ? 255 : r);
+}
+
+// cv2's resizeAreaFast_ for integer factors kx, ky (h and w their
+// multiples: cv2 takes this path only then): the factor 2 in both axes as
+// (sum + 2) >> 2 (ResizeAreaFastVec, for 1, 3 or 4 channels), other
+// factors as the block sum times the float 1 / area
+void area_fast(const uint8_t* img, int w, int c, int dh, int dw, int kx,
+               int ky, uint8_t* out) {
+  const bool two = kx == 2 && ky == 2 && (c == 1 || c == 3 || c == 4);
+  const float scale = 1.f / float(kx * ky);
+  const size_t sw = size_t(w) * c;
+  for (int dy = 0; dy < dh; ++dy) {
+    uint8_t* o = out + size_t(dy) * dw * c;
+    for (int dx = 0; dx < dw; ++dx)
+      for (int ch = 0; ch < c; ++ch) {
+        int s = 0;
+        for (int j = 0; j < ky; ++j)
+          for (int i = 0; i < kx; ++i)
+            s += img[size_t(dy * ky + j) * sw + size_t(dx * kx + i) * c + ch];
+        o[size_t(dx) * c + ch] =
+            two ? uint8_t((s + 2) >> 2) : round_u8(float(s) * scale);
+      }
+  }
+}
+
+struct AreaTap {
+  int di, si;
+  float alpha;
+};
+
+// cv2's computeResizeAreaTab
+std::vector<AreaTap> area_taps(int ssize, int dsize, double scale) {
+  std::vector<AreaTap> tab;
+  for (int dx = 0; dx < dsize; ++dx) {
+    const double fsx1 = dx * scale, fsx2 = fsx1 + scale;
+    const double cell = std::min(scale, ssize - fsx1);
+    int sx1 = int(std::ceil(fsx1)), sx2 = int(std::floor(fsx2));
+    sx2 = std::min(sx2, ssize - 1);
+    sx1 = std::min(sx1, sx2);
+    if (sx1 - fsx1 > 1e-3)
+      tab.push_back({dx, sx1 - 1, float((sx1 - fsx1) / cell)});
+    for (int sx = sx1; sx < sx2; ++sx)
+      tab.push_back({dx, sx, float(1.0 / cell)});
+    if (fsx2 - sx2 > 1e-3)
+      tab.push_back(
+          {dx, sx2, float(std::min(std::min(fsx2 - sx2, 1.), cell) / cell)});
+  }
+  return tab;
+}
+
+// cv2's ResizeArea_Invoker<uchar, float>: each source row weighted along
+// x into a float row, the rows of one output row summed by their weights
+void area_general(const uint8_t* img, int h, int w, int c, int dh, int dw,
+                  double sx, double sy, uint8_t* out) {
+  const std::vector<AreaTap> xt = area_taps(w, dw, sx);
+  const std::vector<AreaTap> yt = area_taps(h, dh, sy);
+  const size_t dwc = size_t(dw) * c;
+  std::vector<float> buf(dwc), sum(dwc, 0.f);
+  int prev = yt.empty() ? 0 : yt[0].di;
+  for (const AreaTap& ty : yt) {
+    const uint8_t* s = img + size_t(ty.si) * w * c;
+    std::fill(buf.begin(), buf.end(), 0.f);
+    for (const AreaTap& tx : xt)
+      for (int ch = 0; ch < c; ++ch)
+        buf[size_t(tx.di) * c + ch] +=
+            float(s[size_t(tx.si) * c + ch]) * tx.alpha;
+    if (ty.di != prev) {
+      uint8_t* o = out + size_t(prev) * dwc;
+      for (size_t i = 0; i < dwc; ++i) {
+        o[i] = round_u8(sum[i]);
+        sum[i] = ty.alpha * buf[i];
+      }
+      prev = ty.di;
+    } else {
+      for (size_t i = 0; i < dwc; ++i) sum[i] += ty.alpha * buf[i];
+    }
+  }
+  uint8_t* o = out + size_t(prev) * dwc;
+  for (size_t i = 0; i < dwc; ++i) o[i] = round_u8(sum[i]);
+}
+
+// cv2's choice between the two area paths: integer factors within
+// DBL_EPSILON take resizeAreaFast_
+bool integer_factors(int h, int w, int dh, int dw, int* kx, int* ky) {
+  const double sx = 1. / (double(dw) / w), sy = 1. / (double(dh) / h);
+  *kx = int(std::nearbyint(sx));
+  *ky = int(std::nearbyint(sy));
+  return std::fabs(sx - *kx) < 2.220446049250313e-16 &&
+         std::fabs(sy - *ky) < 2.220446049250313e-16;
+}
+
+// INTER_LINEAR's source index and 11-bit weights along one axis (cv2's
+// resize(): the position in float, its floor, the weights rounded half to
+// even); clamp as cv2 clamps x (y only indexes clipped rows)
+void linear_taps(int ssize, int dsize, bool clamp, std::vector<int>& s0,
+                 std::vector<int>& w0, std::vector<int>& w1) {
+  const double scale = 1. / (double(dsize) / ssize);
+  s0.resize(dsize);
+  w0.resize(dsize);
+  w1.resize(dsize);
+  for (int d = 0; d < dsize; ++d) {
+    float f = float((d + 0.5) * scale - 0.5);
+    int s = int(std::floor(f));
+    f -= float(s);
+    if (clamp && s < 0) f = 0, s = 0;
+    if (clamp && s >= ssize - 1) f = 0, s = ssize - 1;
+    s0[d] = s;
+    w0[d] = int(std::nearbyint((1.f - f) * 2048.f));
+    w1[d] = int(std::nearbyint(f * 2048.f));
+  }
 }
 
 }  // namespace
@@ -866,61 +1084,79 @@ int jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out) {
   return d.output(out);
 }
 
-// encode img [h, w, c] (c 1 or 3) as baseline JPEG at quality; the bytes
-// stay in a per-thread buffer: *out points at them, *size is their count
+// encode img [h, w, c] (c 1 or 3, RGB) as cv2.imencode(".jpg") encodes
+// its BGR twin through libjpeg-turbo with the defaults: baseline, 4:2:0
+// (gray: one component), no optimized tables; the bytes stay in a
+// per-thread buffer: *out points at them, *size is their count
 int jpeg_encode(const uint8_t* img, int h, int w, int c, int quality,
                 const uint8_t** out, int64_t* size) {
   if (h <= 0 || w <= 0 || h > 65535 || w > 65535 || (c != 1 && c != 3))
     return fail("jpeg_encode takes 1 or 3 channels, sizes 1-65535");
-  const int hs = c == 3 ? 2 : 1;  // 4:2:0 for colour
+  const int hs = c == 3 ? 2 : 1;  // the luma sampling factor
   const int mcu = 8 * hs;
-  const int pw = (w + mcu - 1) / mcu * mcu, ph = (h + mcu - 1) / mcu * mcu;
-  // jccolor.c rgb_ycc_convert, edges replicated to the MCU grid
-  std::vector<uint8_t> planes[3];
-  for (int i = 0; i < c; ++i) planes[i].resize(size_t(pw) * ph);
+  const int mcus_x = (w + mcu - 1) / mcu, mcus_y = (h + mcu - 1) / mcu;
+  const int yb_w = (w + 7) / 8, yb_h = (h + 7) / 8;  // luma blocks
+  Plane planes[3];
+  planes[0].init(yb_w * 8, mcus_y * mcu);
+  for (int i = 1; i < c; ++i) planes[i].init(mcus_x * 8, mcus_y * 8);
+  // jccolor.c rgb_ycc_convert on each row group (hs rows, the last row
+  // of the image repeated to fill one), then jcsample.c: the luma copied
+  // and expanded right, the chroma expanded right to 2x its padded width
+  // and reduced by h2v2_downsample, its rounding bias alternating 1, 2
   const int64_t one_half = int64_t(1) << 15, cbcr_off = int64_t(128) << 16;
   auto fix = [](double x) { return int64_t(x * (1 << 16) + 0.5); };
   const int64_t r_y = fix(0.29900), g_y = fix(0.58700), b_y = fix(0.11400);
   const int64_t r_cb = -fix(0.16874), g_cb = -fix(0.33126), b_cb = fix(0.5);
   const int64_t r_cr = fix(0.5), g_cr = -fix(0.41869), b_cr = -fix(0.08131);
-  for (int y = 0; y < ph; ++y) {
-    const uint8_t* row = img + size_t(y < h ? y : h - 1) * w * c;
-    for (int x = 0; x < pw; ++x) {
-      const uint8_t* p = row + size_t(x < w ? x : w - 1) * c;
-      size_t k = size_t(y) * pw + x;
-      if (c == 1) {
-        planes[0][k] = p[0];
-        continue;
+  const int groups = (h + hs - 1) / hs;
+  std::vector<uint8_t> cb(size_t(hs) * 2 * mcus_x * 8),
+      cr(size_t(hs) * 2 * mcus_x * 8);
+  const int cbw = 2 * mcus_x * 8;
+  for (int g = 0; g < groups; ++g) {
+    for (int k = 0; k < hs; ++k) {
+      const int y = g * hs + k, src_y = y < h ? y : h - 1;
+      const uint8_t* row = img + size_t(src_y) * w * c;
+      uint8_t* yr = planes[0].row(y);
+      for (int x = 0; x < w; ++x) {
+        const uint8_t* p = row + size_t(x) * c;
+        if (c == 1) {
+          yr[x] = p[0];
+          continue;
+        }
+        int64_t r = p[0], gg = p[1], b = p[2];
+        yr[x] = uint8_t((r_y * r + g_y * gg + b_y * b + one_half) >> 16);
+        cb[size_t(k) * cbw + x] = uint8_t(
+            (r_cb * r + g_cb * gg + b_cb * b + cbcr_off + one_half - 1) >> 16);
+        cr[size_t(k) * cbw + x] = uint8_t(
+            (r_cr * r + g_cr * gg + b_cr * b + cbcr_off + one_half - 1) >> 16);
       }
-      int64_t r = p[0], g = p[1], b = p[2];
-      planes[0][k] = uint8_t((r_y * r + g_y * g + b_y * b + one_half) >> 16);
-      planes[1][k] = uint8_t(
-          (r_cb * r + g_cb * g + b_cb * b + cbcr_off + one_half - 1) >> 16);
-      planes[2][k] = uint8_t(
-          (r_cr * r + g_cr * g + b_cr * b + cbcr_off + one_half - 1) >> 16);
+      planes[0].expand_right(y, w);
+      if (c == 3)
+        for (int x = w; x < cbw; ++x) {
+          cb[size_t(k) * cbw + x] = cb[size_t(k) * cbw + w - 1];
+          cr[size_t(k) * cbw + x] = cr[size_t(k) * cbw + w - 1];
+        }
     }
-  }
-  // jcsample.c h2v2_downsample: 2x2 means, the rounding bias alternating
-  const int cw = pw / hs, ch = ph / hs;
-  std::vector<uint8_t> chroma[2];
-  if (c == 3) {
-    for (int i = 0; i < 2; ++i) {
-      chroma[i].resize(size_t(cw) * ch);
-      const uint8_t* s = planes[i + 1].data();
-      for (int y = 0; y < ch; ++y) {
+    if (c == 3)
+      for (int i = 0; i < 2; ++i) {
+        const uint8_t* s0 = (i ? cr : cb).data();
+        const uint8_t* s1 = s0 + cbw;
+        uint8_t* o = planes[i + 1].row(g);
         int bias = 1;
-        for (int x = 0; x < cw; ++x) {
-          const uint8_t* a = s + size_t(2 * y) * pw + 2 * x;
-          chroma[i][size_t(y) * cw + x] =
-              uint8_t((a[0] + a[1] + a[pw] + a[pw + 1] + bias) >> 2);
+        for (int x = 0; x < planes[i + 1].w; ++x) {
+          o[x] = uint8_t((s0[2 * x] + s0[2 * x + 1] + s1[2 * x] +
+                          s1[2 * x + 1] + bias) >> 2);
           bias ^= 3;
         }
       }
-    }
   }
+  planes[0].expand_bottom(groups * hs);
+  for (int i = 1; i < c; ++i) planes[i].expand_bottom(groups);
+
   uint16_t ql[64], qc[64];
   scaled_table(kStdLuma, quality, ql);
   scaled_table(kStdChroma, quality, qc);
+  const Divisors dl(ql), dc(qc);
   Code dcl, acl, dcc, acc;
   dcl.build(kDcLumaBits, kDcVals);
   acl.build(kAcLumaBits, kAcLumaVals);
@@ -970,24 +1206,177 @@ int jpeg_encode(const uint8_t* img, int h, int w, int c, int quality,
   o.push_back(0);
   o.push_back(63);
   o.push_back(0);
+  // jccoefct.c compress_data: luma blocks past the image's last block
+  // column or row inside an MCU are dummies, zero with the DC of the
+  // block before them
   BitWriter bw(o);
   int pred[3] = {0, 0, 0};
-  for (int my = 0; my < ph / mcu; ++my)
-    for (int mx = 0; mx < pw / mcu; ++mx) {
+  int16_t blocks[4][64];
+  for (int my = 0; my < mcus_y; ++my)
+    for (int mx = 0; mx < mcus_x; ++mx) {
+      int n = 0;
       for (int y = 0; y < hs; ++y)
-        for (int x = 0; x < hs; ++x)
-          encode_block(planes[0].data() + size_t(my * mcu + 8 * y) * pw +
-                           mx * mcu + 8 * x,
-                       pw, ql, dcl, acl, pred[0], bw);
-      for (int i = 0; i < (c == 3 ? 2 : 0); ++i)
-        encode_block(chroma[i].data() + size_t(my * 8) * cw + mx * 8, cw, qc,
-                     dcc, acc, pred[i + 1], bw);
+        for (int x = 0; x < hs; ++x, ++n) {
+          const int by = my * hs + y, bx = mx * hs + x;
+          if (by < yb_h && bx < yb_w) {
+            forward_dct(planes[0].row(by * 8) + bx * 8, planes[0].w, dl,
+                        blocks[n]);
+          } else {
+            std::memset(blocks[n], 0, sizeof(blocks[n]));
+            blocks[n][0] = blocks[n - 1][0];
+          }
+        }
+      for (int k = 0; k < n; ++k)
+        encode_block(blocks[k], dcl, acl, pred[0], bw);
+      for (int i = 1; i < c; ++i) {
+        forward_dct(planes[i].row(my * 8) + mx * 8, planes[i].w, dc, blocks[0]);
+        encode_block(blocks[0], dcc, acc, pred[i], bw);
+      }
     }
   bw.flush();
   o.push_back(0xFF);
   o.push_back(0xD9);
   *out = o.data();
   *size = int64_t(o.size());
+  return 0;
+}
+
+// cv2's 8-bit GaussianBlur (imgproc/src/smooth.*): the kernel from
+// getGaussianKernelBitExact turned into 8-bit fixed point by error
+// diffusion (getGaussianKernelFixedPoint_ED: its taps sum to 256), then a
+// row pass into 8.8 fixed point and a column pass into 16.16, both exact
+// in integers, rounded half up once at the end; BORDER_REFLECT101. img
+// and out are [h, w, c], ksize odd.
+int gaussian_blur_u8(const uint8_t* img, int h, int w, int c, int ksize,
+                     double sigma, uint8_t* out) {
+  if (h <= 0 || w <= 0 || c <= 0 || ksize <= 0 || ksize % 2 == 0 ||
+      !(sigma > 0))
+    return fail("gaussian_blur_u8 takes an odd ksize and sigma > 0");
+  const int n2 = ksize / 2;
+  std::vector<double> kd(ksize);
+  double sum = 0;
+  const double scale2 = -0.5 * 0.25 / (sigma * sigma);
+  for (int i = 0, x = 1 - ksize; i < n2; ++i, x += 2) {
+    kd[i] = std::exp(double(x * x) * scale2);
+    sum += kd[i];
+  }
+  sum = sum * 2 + 1;
+  const double mul = 1 / sum;
+  for (int i = 0; i < n2; ++i) kd[i] *= mul;
+  std::vector<uint32_t> k(ksize);
+  double err = 0;
+  int64_t ksum = 0;
+  for (int i = 0; i < n2; ++i) {
+    const double v = kd[i] * 256 + err;
+    const int64_t v0 = int64_t(std::nearbyint(v));  // half to even
+    err = v - double(v0);
+    k[i] = k[ksize - 1 - i] = uint32_t(v0);
+    ksum += v0;
+  }
+  k[n2] = uint32_t(256 - 2 * ksum);
+  auto reflect = [](int p, int n) {
+    if (n == 1) return 0;
+    while (p < 0 || p >= n) p = p < 0 ? -p : 2 * n - 2 - p;
+    return p;
+  };
+  std::vector<int> xo(size_t(w) * ksize), yo(size_t(h) * ksize);
+  for (int x = 0; x < w; ++x)
+    for (int t = 0; t < ksize; ++t)
+      xo[size_t(x) * ksize + t] = reflect(x + t - n2, w);
+  for (int y = 0; y < h; ++y)
+    for (int t = 0; t < ksize; ++t)
+      yo[size_t(y) * ksize + t] = reflect(y + t - n2, h);
+  const size_t rw = size_t(w) * c;
+  std::vector<uint32_t> rows(size_t(h) * rw);
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* s = img + size_t(y) * rw;
+    uint32_t* r = rows.data() + size_t(y) * rw;
+    for (int x = 0; x < w; ++x)
+      for (int ch = 0; ch < c; ++ch) {
+        uint32_t acc = 0;
+        for (int t = 0; t < ksize; ++t)
+          acc += k[t] * s[size_t(xo[size_t(x) * ksize + t]) * c + ch];
+        r[size_t(x) * c + ch] = acc;
+      }
+  }
+  std::vector<uint32_t> acc(rw);
+  for (int y = 0; y < h; ++y) {
+    std::fill(acc.begin(), acc.end(), 0u);
+    for (int t = 0; t < ksize; ++t) {
+      const uint32_t* r = rows.data() + size_t(yo[size_t(y) * ksize + t]) * rw;
+      for (size_t i = 0; i < rw; ++i) acc[i] += k[t] * r[i];
+    }
+    uint8_t* o = out + size_t(y) * rw;
+    for (size_t i = 0; i < rw; ++i) o[i] = uint8_t((acc[i] + (1u << 15)) >> 16);
+  }
+  return 0;
+}
+
+// cv2.resize(img, (dw, dh), interpolation=INTER_AREA) for a reduction
+int resize_area_u8(const uint8_t* img, int h, int w, int c, int dh, int dw,
+                   uint8_t* out) {
+  if (h <= 0 || w <= 0 || c <= 0 || dh <= 0 || dw <= 0 || dh > h || dw > w)
+    return fail("resize_area_u8 reduces only");
+  if (dh == h && dw == w) {
+    std::memcpy(out, img, size_t(h) * w * c);
+    return 0;
+  }
+  int kx, ky;
+  if (integer_factors(h, w, dh, dw, &kx, &ky))
+    area_fast(img, w, c, dh, dw, kx, ky, out);
+  else
+    area_general(img, h, w, c, dh, dw, 1. / (double(dw) / w),
+                 1. / (double(dh) / h), out);
+  return 0;
+}
+
+// cv2.resize(img, (dw, dh), interpolation=INTER_LINEAR): HResizeLinear's
+// integer rows, then VResizeLinear's uchar rounding, ((b0 * (r0 >> 4)) >>
+// 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >> 2; a reduction by 2 in both axes
+// takes the area path, as cv2 does
+int resize_linear_u8(const uint8_t* img, int h, int w, int c, int dh, int dw,
+                     uint8_t* out) {
+  if (h <= 0 || w <= 0 || c <= 0 || dh <= 0 || dw <= 0)
+    return fail("resize_linear_u8 takes positive sizes");
+  if (dh == h && dw == w) {
+    std::memcpy(out, img, size_t(h) * w * c);
+    return 0;
+  }
+  int kx, ky;
+  if (integer_factors(h, w, dh, dw, &kx, &ky) && kx == 2 && ky == 2) {
+    area_fast(img, w, c, dh, dw, 2, 2, out);
+    return 0;
+  }
+  std::vector<int> xs, ax0, ax1, ys, by0, by1;
+  linear_taps(w, dw, true, xs, ax0, ax1);
+  linear_taps(h, dh, false, ys, by0, by1);
+  const size_t dwc = size_t(dw) * c;
+  std::vector<int32_t> rows(size_t(h) * dwc);
+  std::vector<char> done(h, 0);
+  auto row = [&](int sy) {
+    sy = sy < 0 ? 0 : sy >= h ? h - 1 : sy;
+    int32_t* r = rows.data() + size_t(sy) * dwc;
+    if (!done[sy]) {
+      const uint8_t* s = img + size_t(sy) * w * c;
+      for (int dx = 0; dx < dw; ++dx) {
+        const int x0 = xs[dx], x1 = x0 + 1 < w ? x0 + 1 : x0;
+        for (int ch = 0; ch < c; ++ch)
+          r[size_t(dx) * c + ch] = s[size_t(x0) * c + ch] * ax0[dx] +
+                                   s[size_t(x1) * c + ch] * ax1[dx];
+      }
+      done[sy] = 1;
+    }
+    return r;
+  };
+  for (int dy = 0; dy < dh; ++dy) {
+    const int32_t* r0 = row(ys[dy]);
+    const int32_t* r1 = row(ys[dy] + 1);
+    const int b0 = by0[dy], b1 = by1[dy];
+    uint8_t* o = out + size_t(dy) * dwc;
+    for (size_t i = 0; i < dwc; ++i)
+      o[i] = uint8_t(
+          (((b0 * (r0[i] >> 4)) >> 16) + ((b1 * (r1[i] >> 4)) >> 16) + 2) >> 2);
+  }
   return 0;
 }
 

@@ -13,26 +13,31 @@ the card's machine has no cv2.
 - ``decompose_projection_matrix``: ``cv2.decomposeProjectionMatrix``'s
   K, R and homogeneous camera centre.
 
-cv2's 8-bit paths are fixed point (and its SIMD paths round their own
-way), so an 8-bit result here can differ from cv2's by one level at some
-pixels; float inputs under ``resize_nearest`` are copied exactly.
-``tests/test_torch_port_image_ops.py`` holds each one to cv2.
+An 8-bit image goes through the C++ copies of cv2's own fixed-point code
+(``utils/codec.py``: ``gaussian_blur_u8``, ``resize_linear_u8``,
+``resize_area_u8``), equal to cv2's result to the bit; a float image
+through the numpy code here. ``tests/test_torch_port_image_ops.py`` holds
+each one to cv2.
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy.ndimage import correlate1d
 
+from neuray_tpu_torch.utils import codec
+
 _COEF_BITS = 11                      # cv2's INTER_RESIZE_COEF_BITS
 _COEF_SCALE = 1 << _COEF_BITS
 
 
-def _round_to(x: np.ndarray, dtype) -> np.ndarray:
-    """cv2's saturate_cast: round half to even, clip to the type."""
-    if np.issubdtype(dtype, np.integer):
-        info = np.iinfo(dtype)
-        return np.clip(np.rint(x), info.min, info.max).astype(dtype)
-    return x.astype(dtype)
+def _check_dtype(img: np.ndarray) -> bool:
+    """True for uint8 (the C++ path), False for float; other types raise."""
+    if img.dtype == np.uint8:
+        return True
+    if not np.issubdtype(img.dtype, np.floating):
+        raise NotImplementedError(f"cv2's paths for {img.dtype} are not "
+                                  "copied: uint8 and float only")
+    return False
 
 
 def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
@@ -49,6 +54,10 @@ def downsample_gaussian_blur(img: np.ndarray, ratio: float) -> np.ndarray:
     sigma = (1 / ratio) / 3
     ksize = int(np.ceil(((sigma - 0.8) / 0.3 + 1) * 2 + 1))
     ksize = ksize + 1 if ksize % 2 == 0 else ksize
+    if ksize == 1:
+        return img.copy()                    # cv2 copies a 1x1 kernel
+    if _check_dtype(img):
+        return codec.gaussian_blur_u8(img, ksize, sigma)
     kernel = gaussian_kernel(ksize, sigma)
     # scipy's 'mirror' border is BORDER_REFLECT101 (dcb|abcd|cba), as is
     # numpy's 'reflect'; down the rows, whole shifted rows are summed
@@ -59,7 +68,7 @@ def downsample_gaussian_blur(img: np.ndarray, ratio: float) -> np.ndarray:
     out = np.zeros_like(rows)
     for i, k in enumerate(kernel):
         out += np.float32(k) * padded[i:i + n]
-    return _round_to(out, img.dtype)
+    return out.astype(img.dtype)
 
 
 def _linear_taps(src: int, dst: int):
@@ -86,6 +95,8 @@ def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
     """``cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)``, dsize
     (w, h): half-pixel centres, edges clamped; an exact 2x reduction in
     both axes takes the area path, as cv2 does."""
+    if _check_dtype(img):
+        return codec.resize_linear_u8(img, dsize)
     w, h = int(dsize[0]), int(dsize[1])
     sh, sw = img.shape[:2]
     if _is_integer_scale(sw, sh, w, h, 2):
@@ -93,14 +104,6 @@ def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
     xs0, xs1, ax0, ax1 = _linear_taps(sw, w)
     ys0, ys1, ay0, ay1 = _linear_taps(sh, h)
     extra = (None,) * (img.ndim - 2)
-    if np.issubdtype(img.dtype, np.integer):
-        src = img.astype(np.int64)
-        rows = (src[:, xs0] * ax0[(slice(None),) + extra]
-                + src[:, xs1] * ax1[(slice(None),) + extra])
-        out = (rows[ys0] * ay0[(slice(None), None) + extra]
-               + rows[ys1] * ay1[(slice(None), None) + extra]
-               + (1 << (2 * _COEF_BITS - 1))) >> (2 * _COEF_BITS)
-        return _round_to(out, img.dtype)
     src = img.astype(np.float32)
     fx1 = (ax1 / _COEF_SCALE).astype(np.float32)[(slice(None),) + extra]
     fy1 = (ay1 / _COEF_SCALE).astype(np.float32)[(slice(None), None) + extra]
@@ -151,15 +154,13 @@ def resize_area(img: np.ndarray, dsize) -> np.ndarray:
     sh, sw = img.shape[:2]
     if w > sw or h > sh:
         raise NotImplementedError("resize_area reduces only")
+    if _check_dtype(img):
+        return codec.resize_area_u8(img, dsize)
     if _is_integer_scale(sw, sh, w, h):
         kx, ky = sw // w, sh // h
         blocks = img.reshape(h, ky, w, kx, *img.shape[2:])
-        if np.issubdtype(img.dtype, np.integer) and kx * ky == 4:
-            # cv2's 2x2 path: (sum + 2) >> 2
-            s = blocks.astype(np.int64).sum((1, 3))
-            return ((s + 2) >> 2).astype(img.dtype)
         s = blocks.astype(np.float64).sum((1, 3)) * np.float32(1 / (kx * ky))
-        return _round_to(s, img.dtype)
+        return s.astype(img.dtype)
     (iy, wy), (ix, wx) = _area_taps(sh, h), _area_taps(sw, w)
     extra = (None,) * (img.ndim - 2)
     src = img.astype(np.float64)
@@ -167,7 +168,7 @@ def resize_area(img: np.ndarray, dsize) -> np.ndarray:
                for k in range(iy.shape[1]))                     # h, sw, ...
     out = sum(rows[:, ix[:, k]] * wx[(None, slice(None), k) + extra]
               for k in range(ix.shape[1]))
-    return _round_to(out, img.dtype)
+    return out.astype(img.dtype)
 
 
 def resize_nearest(img: np.ndarray, dsize) -> np.ndarray:

@@ -12,8 +12,7 @@ import os
 import numpy as np
 
 from neuray_tpu_torch.data.image_ops import resize_area
-from neuray_tpu_torch.utils.codec import apply_orientation, jpeg_orientation
-from neuray_tpu_torch.utils.imageio import imread
+from neuray_tpu_torch.utils.imageio import imread_color
 from neuray_tpu_torch.utils.png import read_png, write_png
 
 
@@ -49,20 +48,6 @@ def recenter_poses(poses):
     return poses_
 
 
-def _imread_color(path: str) -> np.ndarray:
-    """An image as ``cv2.imread(path)`` (IMREAD_COLOR) reads it, in RGB:
-    3 channels, a JPEG turned upright by its EXIF orientation."""
-    img = imread(path)
-    if img.ndim == 2:
-        img = np.repeat(img[:, :, None], 3, 2)
-    img = img[:, :, :3]
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(b"\xff\xd8"):
-        img = apply_orientation(img, jpeg_orientation(data))
-    return img
-
-
 def _minify(basedir: str, factor: int):
     """The images of ``basedir/images`` reduced by factor into
     ``images_<factor>/<name>.png`` (written once); returns their paths."""
@@ -77,7 +62,7 @@ def _minify(basedir: str, factor: int):
         out_fns.append(out)
         if os.path.exists(out):
             continue
-        img = _imread_color(os.path.join(srcdir, fn))
+        img = imread_color(os.path.join(srcdir, fn))
         h, w = img.shape[:2]
         write_png(out, resize_area(img, (int(np.round(w / factor)),
                                          int(np.round(h / factor)))))

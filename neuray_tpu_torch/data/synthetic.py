@@ -120,11 +120,12 @@ def make_sphere_scene(rng: np.random.RandomState, rfn: int, h: int,
 
 
 def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
-                                size: int = 800, scene: str = "sphere"
-                                ) -> None:
+                                size: int = 800, scene: str = "sphere",
+                                n_test: int = 1) -> None:
     """Write the unit sphere as the NeRF-synthetic scene folder
     ``{root}/nerf_synthetic/{scene}``: ``n_train`` train views ``r_<i>``,
-    the val views of ``nerf_syn_val_ids`` and the test view ``r_0``, each
+    the val views of ``nerf_syn_val_ids`` and ``n_test`` test views
+    ``r_<i>`` (drawn last: more of them change no other view), each
     a size x size RGBA PNG (alpha the hit mask, black background) from a
     random camera on the radius-4 shell (``look_at_camera``, in split
     order from ``SCENE_SEED``) at lego's field of view
@@ -141,7 +142,7 @@ def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
     flip = np.diag(np.asarray([1, -1, -1], np.float32))
     splits = (("train", [f"r_{i}" for i in range(n_train)]),
               ("val", [i[len("val-"):] for i in nerf_syn_val_ids]),
-              ("test", ["r_0"]))
+              ("test", [f"r_{i}" for i in range(n_test)]))
     for split, names in splits:
         (base / split).mkdir(exist_ok=True)
         frames = []

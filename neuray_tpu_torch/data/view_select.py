@@ -36,3 +36,13 @@ def select_working_views(ref_poses, que_poses, work_num: int,
     if exclude_self:
         return ids[:, 1:work_num + 1]
     return ids[:, :work_num]
+
+
+def select_working_views_db(database, ref_ids, que_poses, work_num: int,
+                            exclude_self: bool = False) -> np.ndarray:
+    """``select_working_views`` over database ids (every image of the
+    database when ref_ids is None) -> [qn, work_num] image ids."""
+    ref_ids = database.get_img_ids() if ref_ids is None else ref_ids
+    ref_poses = np.asarray([database.get_pose(i) for i in ref_ids])
+    idx = select_working_views(ref_poses, que_poses, work_num, exclude_self)
+    return np.asarray(ref_ids)[idx]

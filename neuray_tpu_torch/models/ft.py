@@ -14,8 +14,9 @@ and renders its rays; with ``use_self_hit_prob`` it also encodes the
 query view (a ninth image-encoder pass) for the consistency loss. The
 scene's images, poses, Ks and depth ranges live on the device.
 
-``render_video_ft`` waits for the CLIs (ROADMAP item 7) and the
-ray-sharded step for multi-GPU (item 11).
+``render_video_ft`` is the render CLI's ``--render_type ft``: the
+finetuned scene's frames along a trajectory. The ray-sharded step for
+multi-GPU waits for ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ import torch.nn as nn
 from neuray_tpu_torch.data.database import (
     get_database_split, parse_database_name)
 from neuray_tpu_torch.data.imgs_info import build_imgs_info, get_coords_mask
-from neuray_tpu_torch.data.view_select import compute_nearest_camera_indices
+from neuray_tpu_torch.data.view_select import (
+    compute_nearest_camera_indices, select_working_views)
+from neuray_tpu_torch.models import renderer as R
 from neuray_tpu_torch.models.renderer import (
     NeurayRenderer, RenderConfig, render_rays)
 from neuray_tpu_torch.utils.config import load_cfg
@@ -63,9 +66,9 @@ _STORE = ("imgs", "poses", "Ks", "depth_range")
 
 
 def load_gen_state(output_root: str, name: str) -> Tensors:
-    """The parameters of the generalization model ``name``, as the port's
-    ``Trainer`` saves them: ``{output_root}/{name}/ckpt_best.pt``, else
-    ``ckpt.pt``."""
+    """The parameters of the model ``name`` (generalization or
+    finetuned), as the port's trainers save them:
+    ``{output_root}/{name}/ckpt_best.pt``, else ``ckpt.pt``."""
     for fn in ("ckpt_best.pt", "ckpt.pt"):
         path = f"{output_root}/{name}/{fn}"
         if os.path.exists(path):
@@ -296,3 +299,92 @@ def make_ft_render_fn(ft: FtRenderer,
         return render_rays(ft.net, encode(ref), que, keep_keys)
 
     return render
+
+
+def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
+                    render_depth, ray_num, rb, re, device=None):
+    """The render CLI's ``--render_type ft``: frames rb..re of the
+    trajectory pose_type (``get_render_poses``) of the finetuned model of
+    the config cfg_fn, read from its checkpoint (``load_gen_state`` under
+    ``output_root``: ``{"ray_feats": ..., "net.*": ...}`` as
+    ``FtTrainer`` saves it). Each pose renders from its
+    ``neighbor_view_num`` nearest reference views (the nearest left
+    out), their ray_feats sliced from the trained ones, at the first
+    image's K and size and the scene's depth range. With
+    ``skip_empty_rays`` the frame goes through the driver of
+    ``skip_mode`` as the gen CLI's does (the auto modes starting from the
+    config's probe size on every frame), else through ``render_rays``.
+    ``{qi}-nr.jpg`` and ``{qi}-nr_fine.jpg`` go to
+    ``data/render/<db>/<name>-<pose_type>``; a frame whose
+    ``nr_fine.jpg`` exists is skipped. render_depth is not used: the FT
+    render writes colours only, as the JAX package's does."""
+    from pathlib import Path
+
+    from neuray_tpu_torch.data.render_poses import get_render_poses
+    from neuray_tpu_torch.render import save_renderings
+
+    cfg = load_cfg(cfg_fn)
+    cfg["ray_batch_num"] = ray_num
+    ft = FtRenderer(cfg, device)
+    params = load_gen_state(ft.cfg["output_root"], cfg["name"])
+    ft.set_ray_feats(params["ray_feats"])
+    ft.load_state_dict(params)
+
+    database = ft.database
+    que_poses = get_render_poses(database, pose_type, pose_fn)
+    use_skip = (cfg.get("skip_empty_rays", False)
+                and ft.render_cfg.use_hierarchical_sampling)
+    encode = make_ft_encode_fn(ft)
+    output_dir = (f'data/render/{database_name.replace("/", "_")}/'
+                  f'{cfg["name"]}-{pose_type}')
+    Path(output_dir).mkdir(exist_ok=True, parents=True)
+    k0 = database.get_img_ids()[0]
+    h, w = database.get_image(k0).shape[:2]
+    K = database.get_K(k0)
+    dr = ft.ref_info["depth_range"][0]
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h))
+    coords = np.stack([xs, ys], -1).reshape(1, -1, 2).astype(np.float32)
+
+    re = len(que_poses) if re == -1 else min(re, len(que_poses))
+    for qi in range(rb, re):
+        if os.path.exists(f"{output_dir}/{qi}-nr_fine.jpg"):
+            continue
+        ref_idx = select_working_views(
+            np.asarray(ft.ref_info["poses"]), que_poses[qi:qi + 1],
+            ft.cfg["neighbor_view_num"], True)[0]
+        idx = torch.from_numpy(ref_idx).to(ft.device)
+        ref = ft._slice_ref(idx)
+        ref["ray_feats_raw"] = ft.ray_feats.detach().index_select(0, idx)
+        que = {k: torch.from_numpy(v).to(ft.device) for k, v in {
+            "coords": coords, "poses": que_poses[qi][None],
+            "Ks": K[None].astype(np.float32),
+            "depth_range": dr[None]}.items()}
+        ref_c = encode(ref)
+        if use_skip:
+            out = _ft_skip_frame(ft, cfg, ref_c, que, (h, w))
+        else:
+            out = render_rays(ft.net, ref_c, que,
+                              ("pixel_colors_nr", "pixel_colors_nr_fine"))
+        save_renderings(output_dir, qi, out, h, w)
+        print(f"rendered {qi + 1}/{re}", flush=True)
+
+
+def _ft_skip_frame(ft: FtRenderer, cfg, ref_c: Tensors, que: Tensors, hw):
+    """One FT frame through the frame driver of ``skip_mode``."""
+    mode = cfg.get("skip_mode", "two_phase")
+    kw = dict(threshold=cfg.get("skip_empty_threshold", 0.05),
+              keep_base=("pixel_colors_nr",))
+    dilate, stride = cfg.get("probe_dilate", 1), cfg.get("probe_stride", 1)
+    if mode in ("auto", "auto_focus"):
+        return R.render_frame_probe_auto(
+            ft.net, ref_c, que, image_hw=hw, dilate=dilate,
+            focus=mode == "auto_focus", tol=cfg.get("skip_auto_tol", 0.02),
+            probe_stride=stride, **kw)
+    if mode == "probe_focus":
+        return R.render_frame_probe_focus(ft.net, ref_c, que, image_hw=hw,
+                                          dilate=dilate, probe_stride=stride,
+                                          **kw)
+    if mode == "probe":
+        return R.render_frame_probe_skip(ft.net, ref_c, que, image_hw=hw,
+                                         dilate=dilate, **kw)
+    return R.render_frame_skip_empty(ft.net, ref_c, que, **kw)

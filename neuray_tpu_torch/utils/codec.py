@@ -1,6 +1,7 @@
 """The C++ image helper (``csrc/imageio.cpp``): baseline JPEG reading and
-writing, and PNG row unfiltering, for the port's data layer (the card's
-machine has no cv2 or PIL; the JAX package reads and writes through cv2).
+writing, PNG row unfiltering and cv2's 8-bit blur and resizes, for the
+port's data layer (the card's machine has no cv2 or PIL; the JAX package
+reads, writes and resizes through cv2).
 
 The helper is compiled with the system ``g++`` at first use, from the
 source in this repository, into ``build/neuray_tpu_torch/`` keyed by a
@@ -11,8 +12,11 @@ raises with the compiler's output; nothing falls back to another codec.
 through libjpeg-turbo's default path (the islow IDCT, fancy upsampling,
 the fixed-point YCbCr -> RGB tables), to the bit, and returns RGB (not
 cv2's BGR) or gray. Progressive and arithmetic-coded files raise.
-``write_jpeg`` writes baseline JPEG, 4:2:0, the standard tables at the
-given quality (cv2.imwrite's defaults: 95).
+``write_jpeg`` writes the bytes ``cv2.imencode(".jpg", ...)`` writes
+(libjpeg-turbo's compress path at cv2's defaults: baseline, 4:2:0, the
+standard tables at the given quality, 95 by default).
+``gaussian_blur_u8``, ``resize_area_u8`` and ``resize_linear_u8`` are
+cv2's 8-bit fixed-point ``GaussianBlur`` and ``resize``, to the bit.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import numpy as np
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "imageio.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
     "neuray_tpu_torch"
-_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 
 
 def build_library() -> Path:
@@ -76,8 +80,13 @@ def load_library() -> ctypes.CDLL:
                                 ctypes.POINTER(ctypes.c_void_p),
                                 ctypes.POINTER(ctypes.c_int64)]
     lib.png_unfilter.argtypes = [p, i32, i64, i32, p]
+    lib.gaussian_blur_u8.argtypes = [p, i32, i32, i32, i32, ctypes.c_double,
+                                     p]
+    lib.resize_area_u8.argtypes = [p, i32, i32, i32, i32, i32, p]
+    lib.resize_linear_u8.argtypes = [p, i32, i32, i32, i32, i32, p]
     for fn in (lib.jpeg_info, lib.jpeg_decode, lib.jpeg_encode,
-               lib.png_unfilter):
+               lib.png_unfilter, lib.gaussian_blur_u8, lib.resize_area_u8,
+               lib.resize_linear_u8):
         fn.restype = ctypes.c_int
     return lib
 
@@ -113,6 +122,49 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
                                 ctypes.byref(ptr), ctypes.byref(size)),
            "encode_jpeg")
     return ctypes.string_at(ptr, size.value)
+
+
+def _u8_image(img: np.ndarray, what: str):
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"{what} takes uint8 [h, w] or [h, w, c], got "
+                         f"{img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    return img, 1 if img.ndim == 2 else img.shape[2]
+
+
+def gaussian_blur_u8(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), sigma, borderType=
+    cv2.BORDER_REFLECT101)`` of uint8 [h, w] or [h, w, c], to the bit."""
+    img, c = _u8_image(img, "gaussian_blur_u8")
+    out = np.empty_like(img)
+    lib = load_library()
+    _check(lib, lib.gaussian_blur_u8(img.ctypes.data, img.shape[0],
+                                     img.shape[1], c, int(ksize),
+                                     float(sigma), out.ctypes.data),
+           "gaussian_blur_u8")
+    return out
+
+
+def _resize_u8(fn: str, img: np.ndarray, dsize) -> np.ndarray:
+    img, c = _u8_image(img, fn)
+    w, h = int(dsize[0]), int(dsize[1])
+    out = np.empty((h, w) + img.shape[2:], np.uint8)
+    lib = load_library()
+    _check(lib, getattr(lib, fn)(img.ctypes.data, img.shape[0], img.shape[1],
+                                 c, h, w, out.ctypes.data), fn)
+    return out
+
+
+def resize_area_u8(img: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(img, dsize, interpolation=cv2.INTER_AREA)`` of uint8
+    for a reduction, dsize (w, h), to the bit."""
+    return _resize_u8("resize_area_u8", img, dsize)
+
+
+def resize_linear_u8(img: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.resize(img, dsize, interpolation=cv2.INTER_LINEAR)`` of uint8,
+    dsize (w, h), to the bit."""
+    return _resize_u8("resize_linear_u8", img, dsize)
 
 
 def read_jpeg(path: str) -> np.ndarray:

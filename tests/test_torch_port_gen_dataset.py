@@ -5,8 +5,7 @@ off: the same index and seed give the same sample key for key (depth
 ranges, coords, ``nn_ids`` and ``depth_loss_coords`` exactly; poses and
 Ks exactly but for DTU's, which come from a projection matrix's RQ
 decomposition, within 1e-6 as ``tests/test_torch_port_databases.py``
-holds them; images within one level of 255 where a family resizes them,
-else exactly). The training seed reads ``time.time()``, which both modules see
+holds them; images exactly, resized ones too). The training seed reads ``time.time()``, which both modules see
 frozen at one value. Also ``select_train_ids_for_real_estate``,
 ``add_depth_offset`` and ``FinetuningRendererDataset``.
 """
@@ -24,7 +23,6 @@ from neuray_tpu_torch.data import train_dataset as D
 from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
 
 TRAIN = ["gso", "dtu_train", "real_iconic", "real_estate", "space"]
-RESIZED = ("real_estate", "nerf_synthetic")
 SMALL = {"train_ray_num": 64, "depth_loss_coords_num": 32,
          "aug_forward_crop_size": (24, 40)}
 
@@ -56,22 +54,19 @@ def data_root(scenes, monkeypatch):
     return names
 
 
-def assert_same(ours, theirs, image_tol, path="sample", scene=None):
+def assert_same(ours, theirs, path="sample", scene=None):
     if isinstance(theirs, dict):
         assert set(ours) == set(theirs), (path, set(ours) ^ set(theirs))
         scene = theirs.get("scene_name", scene)
         for k in theirs:
-            assert_same(ours[k], theirs[k], image_tol, f"{path}/{k}", scene)
+            assert_same(ours[k], theirs[k], f"{path}/{k}", scene)
         return
     if isinstance(theirs, str):
         assert ours == theirs, path
         return
     ours, theirs = np.asarray(ours), np.asarray(theirs)
     assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, path
-    if path.endswith("imgs"):
-        np.testing.assert_allclose(ours, theirs, rtol=0, atol=image_tol,
-                                   err_msg=path)
-    elif path.endswith(("poses", "Ks")) and "dtu" in scene:
+    if path.endswith(("poses", "Ks")) and "dtu" in scene:
         np.testing.assert_allclose(ours, theirs, rtol=1e-6,
                                    atol=1e-6 * np.abs(theirs).max(),
                                    err_msg=path)
@@ -87,10 +82,9 @@ def test_train_samples_equal_jax(data_root, family, use_src_imgs):
     ours, theirs = D.GeneralRendererDataset(cfg, True), \
         jD.GeneralRendererDataset(cfg, True)
     assert len(ours) == len(theirs)
-    tol = 1.01 / 255 if family in RESIZED else 0.0
     for index in (0, 5):
         sample = ours[index]
-        assert_same(sample, theirs[index], tol)
+        assert_same(sample, theirs[index])
         assert sample["scene_name"] == data_root[family]
         assert ("src" in sample) == use_src_imgs
         assert "depth_loss_coords" in sample or family != "gso"
@@ -104,8 +98,7 @@ def test_eval_samples_equal_jax(data_root, family, use_src_imgs):
     ours, theirs = D.GeneralRendererDataset(cfg, False), \
         jD.GeneralRendererDataset(cfg, False)
     assert len(ours) == len(theirs) > 0
-    tol = 1.01 / 255 if family in RESIZED else 0.0
-    assert_same(ours[0], theirs[0], tol)
+    assert_same(ours[0], theirs[0])
 
 
 def test_the_mixture_draws_alike(data_root):
@@ -121,7 +114,7 @@ def test_the_mixture_draws_alike(data_root):
     seen = set()
     for index in range(6):
         a, b = ours[index], theirs[index]
-        assert_same(a, b, 1.01 / 255)
+        assert_same(a, b)
         seen.add(a["scene_name"])
     assert len(seen) >= 2
 

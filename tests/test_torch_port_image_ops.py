@@ -1,11 +1,12 @@
 """The port's numpy copies of the JAX data layer's cv2 calls
 (``neuray_tpu_torch/data/image_ops.py``) against cv2 itself.
 
-cv2's 8-bit paths are fixed point, so 8-bit images are held within one
-level, the share of exact pixels printed (``pytest -s``); float depth
-under INTER_NEAREST exactly; the decomposed K, R and camera centre within
-1e-6, relative. Ratios: 0.25, 0.5, 800 -> 400 (NeRF-synthetic's
-black_400) and LLFF's 4032 -> 1008 cache on a crop of an original.
+8-bit images are held to cv2's bytes exactly (the port copies cv2's
+fixed-point code, and cv2's result is the same with IPP on and off);
+float depth under INTER_NEAREST exactly; the decomposed K, R and camera
+centre within 1e-6, relative. Ratios: 0.25, 0.5, 800 -> 400
+(NeRF-synthetic's black_400), DTU's 0.5 and LLFF's 4032 -> 1008 cache on
+a crop of an original, and random sizes, ratios and channel counts.
 """
 import cv2
 import numpy as np
@@ -24,30 +25,39 @@ def image(h, w, seed=0):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def within_one_level(name, ours, theirs):
-    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
-    diff = np.abs(ours.astype(np.int64) - theirs.astype(np.int64))
-    print(f"{name}: max {diff.max()}, exact {np.mean(diff == 0):.4f}")
-    assert diff.max() <= 1
+def equal(name, ours, theirs):
+    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, name
+    assert np.array_equal(ours, theirs), (
+        f"{name}: {np.mean(ours != theirs):.5f} of the values differ")
+
+
+@pytest.fixture(params=[True, False], ids=["ipp", "no_ipp"])
+def ipp(request):
+    """cv2 with Intel IPP on (its default here) and off."""
+    before = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(request.param)
+    yield request.param
+    cv2.ipp.setUseIPP(before)
 
 
 RATIOS = {"0.25": (64, 96, 0.25), "0.5": (64, 96, 0.5),
-          "800to400": (800, 800, 0.5), "0.78125": (64, 96, 0.78125)}
+          "800to400": (800, 800, 0.5), "0.78125": (64, 96, 0.78125),
+          "dtu": (600, 800, 0.5)}
 
 
 @pytest.mark.parametrize("ratio", list(RATIOS))
-def test_blur_and_resizes_equal_cv2(ratio):
+def test_blur_and_resizes_equal_cv2(ratio, ipp):
     h, w, r = RATIOS[ratio]
     img = image(h, w)
-    within_one_level(f"blur {ratio}", O.downsample_gaussian_blur(img, r),
+    equal(f"blur {ratio}", O.downsample_gaussian_blur(img, r),
                      jDB.downsample_gaussian_blur(img, r))
     hn, wn = int(np.round(h * r)), int(np.round(w * r))
-    within_one_level(f"linear {ratio}", O.resize_linear(img, (wn, hn)),
+    equal(f"linear {ratio}", O.resize_linear(img, (wn, hn)),
                      cv2.resize(img, (wn, hn),
                                 interpolation=cv2.INTER_LINEAR))
-    within_one_level(f"area {ratio}", O.resize_area(img, (wn, hn)),
+    equal(f"area {ratio}", O.resize_area(img, (wn, hn)),
                      cv2.resize(img, (wn, hn), interpolation=cv2.INTER_AREA))
-    within_one_level(f"resize_img {ratio}", O.resize_img(img, r),
+    equal(f"resize_img {ratio}", O.resize_img(img, r),
                      jDB.resize_img(img, r))
 
 
@@ -59,17 +69,44 @@ def test_llff_cache_reduction_on_a_crop():
     ours = O.resize_area(O.downsample_gaussian_blur(img, ratio), (64, 48))
     theirs = cv2.resize(jDB.downsample_gaussian_blur(img, ratio), (64, 48),
                         interpolation=cv2.INTER_AREA)
-    within_one_level("llff 4032->1008 crop", ours, theirs)
+    equal("llff 4032->1008 crop", ours, theirs)
 
 
 @pytest.mark.parametrize("src,dst", [((720, 1280), (450, 800)),
                                      ((72, 128), (45, 80)),
                                      ((61, 83), (20, 31))])
-def test_area_fractional_equals_cv2(src, dst):
+def test_area_fractional_equals_cv2(src, dst, ipp):
     """RealEstate10K's 1280x720 frames -> 800x450, and others."""
     img = image(*src, seed=2)
-    within_one_level(f"area {src}->{dst}", O.resize_area(img, dst[::-1]),
+    equal(f"area {src}->{dst}", O.resize_area(img, dst[::-1]),
                      cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_sizes_equal_cv2(seed):
+    """Random noise at random sizes, channel counts (1, 3, 4), blur
+    ratios and output sizes: reductions by 2, by 3 and fractional ones,
+    and INTER_LINEAR enlargements."""
+    rng = np.random.RandomState(10 + seed)
+    for t in range(25):
+        h, w = rng.randint(1, 160, 2)
+        c = (1, 3, 4)[t % 3]
+        img = rng.randint(0, 256, (h, w, c)).astype(np.uint8)
+        img = img[..., 0].copy() if c == 1 else img
+        r = rng.uniform(0.1, 1.0)
+        equal(f"blur {img.shape} {r}", O.downsample_gaussian_blur(img, r),
+              jDB.downsample_gaussian_blur(img, r))
+        for dh, dw in [(max(1, h // 2), max(1, w // 2)),
+                       (max(1, h // 3), max(1, w // 3)),
+                       (max(1, int(h * r)), max(1, int(w * r)))]:
+            equal(f"area {img.shape} -> {dh, dw}",
+                  O.resize_area(img, (dw, dh)),
+                  cv2.resize(img, (dw, dh), interpolation=cv2.INTER_AREA))
+        for dh, dw in [(max(1, int(h * r)), max(1, int(w * r))),
+                       (int(h * (1 + 2 * r)), int(w * (1 + 2 * r)))]:
+            equal(f"linear {img.shape} -> {dh, dw}",
+                  O.resize_linear(img, (dw, dh)),
+                  cv2.resize(img, (dw, dh), interpolation=cv2.INTER_LINEAR))
 
 
 @pytest.mark.parametrize("dsize", [(40, 30), (100, 77), (83, 61), (27, 13),

@@ -5,8 +5,9 @@ cv2, which the JAX package reads and writes with.
 JPEG decoding is held to ``cv2.imread(..., IMREAD_UNCHANGED)``
 (libjpeg-turbo) bit for bit on cv2-written files: 4:2:0, 4:2:2, 4:4:4 and
 gray, with and without restart intervals and an EXIF segment, at odd
-sizes. JPEG encoding at quality 95 is held to >= 40 dB from the source
-when cv2 decodes it, and the port's decoder to cv2's on those files. A
+sizes. JPEG encoding at quality 95 gives cv2's file byte for byte, >= 40
+dB from the source when cv2 decodes it, and the port's decoder gives
+cv2's pixels on those files. A
 progressive file raises. PNG: 16-bit gray both ways and through every row
 filter cv2 writes.
 """
@@ -96,7 +97,7 @@ def test_jpeg_encode_quality(tmp_path, size, gray):
     """The port writes quality-95 baseline JPEG (4:2:0 in colour), as
     cv2.imwrite does: cv2 decodes it >= 40 dB from a smooth source, as
     close as cv2's own file of the same image, and the port's decoder
-    gives cv2's pixels."""
+    gives cv2's pixels. The file is cv2's own, byte for byte."""
     img = smooth_image(*size, noise=2.0, period=4.0)
     if gray:
         img = img[..., 0]
@@ -117,6 +118,8 @@ def test_jpeg_encode_quality(tmp_path, size, gray):
     assert psnr(theirs) >= 40.0
     assert psnr(theirs) >= psnr(ref) - 0.5
     np.testing.assert_array_equal(imread(path), theirs)
+    with open(path, "rb") as f:
+        assert f.read() == buf.tobytes()
     print(f"{size} gray={gray}: {psnr(theirs):.2f} dB (cv2's own file "
           f"{psnr(ref):.2f} dB)")
 
