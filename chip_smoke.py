@@ -112,16 +112,48 @@ Phases, one line each, any failure raising (exit code != 0):
      resumes and rewrites the audit log; ``python -m neuray_tpu_torch.eval``
      on the frames (its PSNR that of the files, GT-PSNR >= 18 dB, the FT
      frame's >= 24 dB, eval s);
-     then ``neuray_tpu_torch/selfcheck.py``'s render and FT self-checks.
+     then ``neuray_tpu_torch/selfcheck.py``'s render and FT self-checks;
+     then the first exact frame by ``python -m neuray_tpu_torch.render``
+     in a fresh process, where PyTorch's default TF32 flags hold until
+     the CLI's ``main`` turns them off: its JPEGs equal this process's
+     byte for byte, both processes' flags printed (``cli_fresh_process``).
+ 15. the shipped configs no earlier phase runs: (a) ``configs/train/gen/
+     neuray_gen_depth_train_fast.yaml`` (the diff on the half grid)
+     through the CLI on phase 12's data, cut as phase 12 at 20 steps
+     (``fast_cli_phase``): every step's gathers held and its diff gather
+     on its half grid, steps/s beside phase 12's, the half-grid diff
+     gather of a 400x608 crop timed; (b) finetuning by the shipped birds,
+     fern and desktop configs (``ft_db_phase``, ``FT_DB_SCENES``), each
+     on a scene written at its reader's real size (LLFF 1008x756 padded
+     to 1008x768; DTU test 800x600 padded to 800x608; the example layout
+     at 1280x720), 3 + 10 steps held as phase 9's, steps/s beside phase
+     9's, the validations (the configs' initial one on birds, one at the
+     end, on the first val view) printed, the padded maps' gathers timed
+     forward and backward on their real coordinates, and on birds one
+     step's gradients card vs CPU (``ft_grad_compare``).
+ 16. the reference's checkpoints (``ref_ckpt_phase``): ``model_best.pth``
+     files written from both ``.npz`` weights under the reference's keys,
+     converted by ``python -m neuray_tpu_torch.convert_reference_ckpt``,
+     held leaf for leaf to ``load_flax_params``; phase 14's first exact
+     view rendered by the CLI from the converted depth checkpoint, its
+     JPEGs equal phase 14's byte for byte.
+ 17. direct rendering (``dr_phase``): phase 4's exact frame with
+     ``use_dr_prediction``: ``pixel_colors_nr_fine`` bit-equal to phase
+     4's, the DR colours' GT-PSNR, rays/s beside phase 4's, card vs CPU
+     on 2048 centre rays; one render CLI frame whose ``-dr.jpg`` equals
+     its driver's; one training step with the DR losses card vs CPU.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
-(``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``.
+(``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``, and its
+edge cases on maps whose sides end in partial 8x8 tiles (``EDGE_SHAPES``).
 The line before the last is a JSON record of the kernel's instantiations
 (time, bound and grid_sample's time at each one's 64-channel per-chunk
 gather, ``KEY_ROWS``; the backward at generalization training's
 64-channel gather);
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
-it exits non-zero before printing anything.
+the launches are those of every phase's main path, each phase's counts
+set to 0 before it and read after; the line before the device's is the
+whole run's seconds; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits non-zero before printing anything.
 
     python3 chip_smoke.py --grad-sweep N --out FILE
 
@@ -611,10 +643,12 @@ BACKWARD_KEY = ("feats 1/4 res, per training pass", "fused")
 # (random grad_out would leave both sides ~1e-3 of f32 rounding apart).
 LONG_BIN = {"map pixels": (7.5, 7.5), "fused": (303.5, 199.5)}
 # edge-case checks of the tiled backward (held, not timed): the channel
-# counts of every route, on a map of (views, map h, map w) with this many
-# points a view
+# counts of every route, on maps of (views, map h, map w) with this many
+# points a view: the training crop's (its 100 rows end in a partial 8x8
+# tile) and one of 180 x 252 (partial tiles at both ends: desktop's 180
+# rows, birds' 252 columns, phase 15); the frame is 4x the map
 EDGE_CHANNELS = (1, 3, 4, 5, 8, 32, 64, 67)
-EDGE_SHAPE = (2, TRAIN_H // 4, TRAIN_W // 4, 4096)
+EDGE_SHAPES = ((2, TRAIN_H // 4, TRAIN_W // 4, 4096), (2, 180, 252, 4096))
 
 
 def gather_backward_bound(GA, grad_out, pix, fh, fw, masked):
@@ -802,15 +836,29 @@ def row_stats(row):
 
 def check_backward_edges(GA, dev, g):
     """Phase 3's edge cases of the tiled backward, each held to its plain
-    twin into a NaN-poisoned block: points on 8x8 tile seams and corners,
-    on the map's last row and column, and outside it, at every channel
-    count of ``EDGE_CHANNELS`` (the 16-byte, 8-byte and scalar routes),
-    on both entries (map pixels; fused, half-pixel, with mask zeros); one
-    view; no points; grad_out 4 and 8 bytes off a 16-byte boundary (the
-    scalar and 8-byte routes). Returns the largest error and the count of
-    checks."""
-    v, fh, fw, p = EDGE_SHAPE
-    h, w = TRAIN_H, TRAIN_W
+    twin into a NaN-poisoned block, on each map of ``EDGE_SHAPES``:
+    points on 8x8 tile seams and corners, on the map's last row and
+    column (a partial tile where the side is not a multiple of 8), and
+    outside it, at every channel count of ``EDGE_CHANNELS`` (the 16-byte,
+    8-byte and scalar routes), on both entries (map pixels; fused,
+    half-pixel, with mask zeros); one view; no points; grad_out 4 and 8
+    bytes off a 16-byte boundary (the scalar and 8-byte routes). Returns
+    the largest error and the count of checks."""
+    worst, n = 0.0, 0
+    for shape in EDGE_SHAPES:
+        e, k = edge_cases(GA, dev, g, *shape)
+        worst, n = max(worst, e), n + k
+    log(f"backward edge cases: {n} checks on maps {EDGE_SHAPES} (tile seams "
+        f"and corners, the last row and column, outside the map; c "
+        f"{EDGE_CHANNELS}; one view; no points; grad_out 4 and 8 bytes "
+        f"off), max_abs_err {worst:.3g}, every pixel written")
+    return worst, n
+
+
+def edge_cases(GA, dev, g, v, fh, fw, p):
+    """``check_backward_edges`` on one map [v, fh, fw] with p points a
+    view, its frame 4x the map. Returns (the largest error, the count)."""
+    h, w = 4 * fh, 4 * fw
     q = p // 4
 
     def seams(hi):
@@ -841,10 +889,6 @@ def check_backward_edges(GA, dev, g):
             worst = max(worst, hold_backward_call(GA, go, at, m, h, w, fh,
                                                   fw)[0])
             n += 1
-    log(f"backward edge cases: {n} checks (tile seams and corners, the last "
-        f"row and column, outside the map; c {EDGE_CHANNELS}; one view; no "
-        f"points; grad_out 4 and 8 bytes off), max_abs_err {worst:.3g}, "
-        "every pixel written")
     return worst, n
 
 
@@ -1594,8 +1638,8 @@ def grad_check(trainer, dev, weights, sample=None, what=None, witness=False,
         sample = sphere_rays(
             SyntheticRendererDataset(GRAD_CHECK_DATA, True)[0],
             GRAD_CHECK_DATA["train_ray_num"])
-        what = (f"training gradients, card vs CPU ({GRAD_CHECK_DATA}, {DN} "
-                f"+ {DN} samples, rays through the sphere)")
+        what = what or (f"training gradients, card vs CPU ({GRAD_CHECK_DATA}"
+                        f", {DN} + {DN} samples, rays through the sphere)")
     sample = {k: v for k, v in sample.items() if k != "scene_name"}
     ref = {k: torch.from_numpy(v) for k, v in sample["ref"].items()}
     diff = N.get_diff_feats(
@@ -1961,61 +2005,38 @@ def write_gen_checkpoint(weights, output_root, profile=GEN_PROFILE):
     write(output_root, profile, weights)
 
 
-# the gathers of one finetuning step, by map (shape, takes a gradient):
-# per pass the 8 reference images, the [ray_feats | img_feats] map and the
-# query's own vis-encoded ray_feats (the self-hit path)
-FT_STEP_GATHERS = {((RFN, H, W, 3), False): 2,
-                   ((RFN, H // 4, W // 4, 64), True): 2,
-                   ((1, H // 4, W // 4, 32), True): 2}
+def ft_step_gathers(nv, h, w):
+    """The gathers of one finetuning step from nv reference views of
+    (padded) size h x w, by map (shape, takes a gradient): per pass the
+    reference images, the [ray_feats | img_feats] map and the query's own
+    vis-encoded ray_feats (the self-hit path)."""
+    return {((nv, h, w, 3), False): 2,
+            ((nv, h // 4, w // 4, 64), True): 2,
+            ((1, h // 4, w // 4, 32), True): 2}
 
 
-def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
-             gen_profile=GEN_PROFILE, init_gathers=FT_TRAIN_VIEWS,
-             write=True, what="finetuning", label="phase 9"):
-    """Phase 9: ``FtTrainer(cfg).run()`` on the card with the finetuning
-    config's fields (``FT_PROFILE``) and these cuts (``FT_CUTS``): a
-    NeRF-synthetic sphere fabricated under ``work`` (100 train views at
-    800x800 with depth maps, the 6 val views) in place of lego; the gen
-    model (``GEN_PROFILE``) with the trained ``tools/bench_weights.npz``
-    as its checkpoint; 3 warm-up and 30 timed steps; one validation over
-    the 6 val views at the end. Reports the init from the gen model, each
-    step timed on the host clock between synchronizations with its gather
-    launches (6 forward: rgb, the 64-ch map and the self-hit map in each
-    of the two passes; 4 backward: the two maps that take a gradient, in
-    each pass) and its maps (``FT_STEP_GATHERS``), held exactly; the peak
-    memory against a reckoning of the state; the loss; the validation's
-    psnr_nr_fine >= ``PSNR_FLOOR``; that the views a step selected (and
-    only those) changed their ray_feats; one profiled step; and one step's
-    gradients card vs CPU (``ft_grad_check``). The last step's two 64-ch
-    map gathers are timed as backward rows on their real coords
-    (``real_backward_rows``). Returns the phase's gather launches (forward
-    by instantiation, and backward) and the fine pass's row.
 
-    Phase 11 is the same with ``profile`` FT_CV_PROFILE, ``gen_profile``
-    GEN_CV_PROFILE and its weights, ``init_gathers`` 0 (the cost-volume
-    init gathers nothing) and the scene phase 9 wrote (``write`` False).
-    """
-    from neuray_tpu_torch.data import database as DB
-    from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
-    from neuray_tpu_torch.train.ft_trainer import FtTrainer
-    gc.collect()
-    torch.cuda.empty_cache()
-    data_root = work / "ft_data"
-    t0 = time.perf_counter()
-    if write:
-        shutil.rmtree(data_root, ignore_errors=True)
-        write_nerf_synthetic_sphere(str(data_root), FT_TRAIN_VIEWS, H,
-                                    n_test=CLI_TEST_VIEWS)
-    t_write = time.perf_counter() - t0
-    cfg = {**profile, **FT_CUTS, "output_root": str(work)}
-    shutil.rmtree(work / cfg["name"], ignore_errors=True)
-    write_gen_checkpoint(weights, work, gen_profile)
-    DB.DATA_ROOT = str(data_root)
-    t0 = time.perf_counter()
-    trainer = FtTrainer(cfg)
-    t_build = time.perf_counter() - t0
+def ft_run(GA, R, trainer, what, init_gathers):
+    """``trainer.run()`` (an ``FtTrainer``) instrumented and held: the init
+    from the gen model timed with its gather launches (``init_gathers``:
+    the depth init net's diff gather a view), each step timed on the host
+    clock between synchronizations with its gather launches (6 forward:
+    rgb, the 64-ch map and the self-hit map in each of the two passes; 4
+    backward: the two maps that take a gradient, in each pass) and maps
+    (``ft_step_gathers`` at the padded reference images' shape), held
+    exactly; the run's launches held to the steps', the init's and the
+    validations' (4 a chunk of each val view); every parameter finite;
+    the views a step selected (and only those) changed their ray_feats.
+    Returns a record: the steps, the init, the launches (forward by
+    instantiation, backward), the last step's 64-ch map gathers
+    (``captured``: map, points, mask, frame h, w), the validations' steps
+    and per-view psnr_nr_fine, the views touched, the run's seconds."""
     ft = trainer.ft
-
+    n_steps = trainer.cfg["total_step"]
+    nv = ft.cfg["neighbor_view_num"]
+    hp, wp = ft.ref_store["imgs"].shape[1:3]
+    step_gathers = ft_step_gathers(nv, hp, wp)
+    fmap = (nv, hp // 4, wp // 4, 64)
     init = {}
     init_params = ft.init_params
 
@@ -2049,18 +2070,20 @@ def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
         return out
 
     gather, captured = R.interpolate_feature_map, []
-    fmap = (RFN, H // 4, W // 4, 64)
 
-    def counted_gather(feats, *args):
+    def counted_gather(feats, points, mask, *args):
         if counting:
             key = (tuple(feats.shape), feats.requires_grad)
             counting[-1][key] = counting[-1].get(key, 0) + 1
-            if len(steps) == FT_STEPS - 1 and key == (fmap, True):
-                keep_points(captured, *args[:2])
-        return gather(feats, *args)
+            if len(steps) == n_steps - 1 and key == (fmap, True):
+                captured.append((feats.detach().clone(),
+                                 points.detach().clone(),
+                                 mask.detach().clone(), *args[:2]))
+        return gather(feats, points, mask, *args)
 
-    views_psnr = []
+    views_psnr, validations = [], []
     metric = trainer.val_metrics[0]
+    validate = trainer.validate
 
     def per_view(data_pr, *args, **kwargs):
         if not all(np.isfinite(v).all() for v in data_pr.values()):
@@ -2069,7 +2092,12 @@ def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
         views_psnr.append(float(out["psnr_nr_fine"][0]))
         return out
 
+    def counted_validate(step):
+        validations.append(step)
+        return validate(step)
+
     ft.init_params, trainer.train_step = timed_init, timed_step
+    trainer.validate = counted_validate
     trainer.val_metrics[0] = per_view
     R.interpolate_feature_map = counted_gather
     GA.reset_launches()
@@ -2080,95 +2108,163 @@ def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
         wall = time.perf_counter() - t0
     finally:
         R.interpolate_feature_map = gather
+        ft.init_params, trainer.train_step = init_params, train_step
+        trainer.validate, trainer.val_metrics[0] = validate, metric
     launches = dict(GA.LAUNCHES_BY_DTYPE)
     backward = GA.BACKWARD_LAUNCHES
 
     losses = [s["loss"] for s in steps]
-    if len(steps) != FT_STEPS or not np.isfinite(losses).all():
+    if len(steps) != n_steps or not np.isfinite(losses).all():
         raise RuntimeError(f"{what} ran {len(steps)} steps, losses "
                            f"{losses}")
     bad = [(i, s["fwd"], s["bwd"], s["maps"]) for i, s in enumerate(steps)
-           if (s["fwd"], s["bwd"], s["maps"]) != (6, 4, FT_STEP_GATHERS)]
+           if (s["fwd"], s["bwd"], s["maps"]) != (6, 4, step_gathers)]
     if bad:
         raise RuntimeError(f"{what} steps with other gathers than 6 "
-                           f"forward and 4 backward of FT_STEP_GATHERS: {bad}")
+                           f"forward and 4 backward of {step_gathers}: {bad}")
     n_val = len(ft.val_ids)
-    val_chunks = -(-H * W // ft.render_cfg.ray_batch_num)
-    expected = init_gathers + 6 * FT_STEPS + n_val * 4 * val_chunks
+    vh, vw = ft.val_info["imgs"].shape[1:3]
+    val_chunks = -(-vh * vw // ft.render_cfg.ray_batch_num)
+    expected = (init_gathers + 6 * n_steps
+                + len(validations) * n_val * 4 * val_chunks)
     if (init["launches"], launches["f32"], backward) != (
-            init_gathers, expected, 4 * FT_STEPS):
+            init_gathers, expected, 4 * n_steps):
         raise RuntimeError(
             f"{what} gathers: init {init['launches']}, forward "
             f"{launches['f32']}, backward {backward}; expected "
-            f"{init_gathers}, {expected}, {4 * FT_STEPS}")
+            f"{init_gathers}, {expected}, {4 * n_steps}")
     if not all(torch.isfinite(p).all() for p in ft.parameters()):
-        raise RuntimeError("finetuned parameters are not finite")
+        raise RuntimeError(f"{what}: finetuned parameters are not finite")
     touched = sorted(set().union(*(s["views"] for s in steps)))
     moved = (ft.ray_feats.detach() != init["ray_feats"]).flatten(1).any(1)
     moved = set(torch.nonzero(moved).flatten().tolist())
     if moved != set(touched):
-        raise RuntimeError(f"ray_feats changed in views {sorted(moved)}, the "
-                           f"steps selected {touched}")
+        raise RuntimeError(f"{what}: ray_feats changed in views "
+                           f"{sorted(moved)}, the steps selected {touched}")
+    return SimpleNamespace(
+        steps=steps, init=init, launches=launches, backward=backward,
+        captured=captured, validations=validations, views_psnr=views_psnr,
+        touched=touched, wall=wall, step_gathers=step_gathers, fmap=fmap,
+        val_hw=(vh, vw))
 
+
+def ft_summary(trainer, rec, what):
+    """The log lines of a finetuning run (``ft_run``'s record): its steps
+    (median and range after warm-up, the warm-up's), peak memory beside a
+    reckoning of the state, the launches, the loss; returns (the median
+    step seconds, the last validation's psnr_nr_fine from val.txt)."""
+    ft, cfg, steps = trainer.ft, trainer.cfg, rec.steps
     timed = np.array([s["s"] for s in steps[WARMUP_STEPS:]])
     warmup = ", ".join(f"{s['s']:.3f}" for s in steps[:WARMUP_STEPS])
+    losses = [s["loss"] for s in steps]
     first, last = np.mean(losses[:10]), np.mean(losses[-10:])
     n, (fh, fw, c) = len(ft.ref_ids), ft.ray_feats.shape[1:]
+    hp, wp = ft.ref_store["imgs"].shape[1:3]
     state_gb = n * fh * fw * c * 4 / 1e9
     store_gb = sum(v.numel() * v.element_size()
                    for v in ft.ref_store.values()) / 1e9
     val = (Path(cfg["output_root"]) / cfg["name"] / "val.txt"
            ).read_text().split()
-    val_psnr = float(val[val.index("psnr_nr_fine") + 1])
-    log(f"{what}: scene written in {t_write:.1f} s ({FT_TRAIN_VIEWS} + "
-        f"{n_val} + 1 views {H}x{W}), FtTrainer built in {t_build:.1f} s, "
-        f"ray_feats {list(ft.ray_feats.shape)} from the gen model's init net "
-        f"in {init['s']:.2f} s ({init['launches']} diff gathers)")
-    log(f"{what}: {FT_STEPS} steps ({WARMUP_STEPS} warm-up) of "
+    val_psnr = float(val[len(val) - 1 - val[::-1].index("psnr_nr_fine") + 1])
+    log(f"{what}: {len(steps)} steps ({WARMUP_STEPS} warm-up) of "
         f"{cfg['train_ray_num']} rays from {ft.cfg['neighbor_view_num']} of "
-        f"{n} views {H}x{W} + the query's self-hit pass, {DN} + {DN} "
-        f"samples: step median {np.median(timed):.4f} s = "
-        f"{1 / np.median(timed):.2f} steps/s (range {timed.min():.4f}-"
-        f"{timed.max():.4f} s; warm-up steps {warmup}), peak memory "
-        f"{steps[-1]['peak'] / 2**30:.2f} GiB (reckoning before "
-        f"activations: ray_feats {state_gb:.3f} GB, Adam moments "
-        f"{2 * state_gb:.3f} GB, its dense gradient {state_gb:.3f} GB, "
-        f"image store {store_gb:.3f} GB); run {wall:.1f} s with the "
-        f"validation; gather launches a step 6 forward + 4 backward "
-        f"(expected 6 + 4; maps {FT_STEP_GATHERS}), phase {launches} + "
-        f"{backward} backward; ray_feats changed in exactly the "
-        f"{len(touched)} views the steps selected")
+        f"{n} views {wp}x{hp} (padded) + the query's self-hit pass, "
+        f"{ft.render_cfg.depth_sample_num} + "
+        f"{ft.render_cfg.fine_depth_sample_num} samples: step median "
+        f"{np.median(timed):.4f} s = {1 / np.median(timed):.2f} steps/s "
+        f"(range {timed.min():.4f}-{timed.max():.4f} s; warm-up steps "
+        f"{warmup}), peak memory {steps[-1]['peak'] / 2**30:.2f} GiB "
+        f"(reckoning before activations: ray_feats {state_gb:.3f} GB, Adam "
+        f"moments {2 * state_gb:.3f} GB, its dense gradient {state_gb:.3f} "
+        f"GB, image store {store_gb:.3f} GB); run {rec.wall:.1f} s with "
+        f"{len(rec.validations)} validation(s) at steps {rec.validations}; "
+        f"gather launches a step 6 forward + 4 backward (expected 6 + 4; "
+        f"maps {rec.step_gathers}), phase {rec.launches} + {rec.backward} "
+        f"backward; ray_feats changed in exactly the {len(rec.touched)} "
+        f"views the steps selected")
     log(f"{what} loss: mean of the first 10 steps {first:.5f}, of the "
-        f"last 10 {last:.5f}; validation ({n_val} views {H}x{W}) "
-        f"psnr_nr_fine {val_psnr:.3f} dB (by view "
-        f"{', '.join(f'{v:.3f}' for v in views_psnr)}): {' '.join(val[3:])}")
+        f"last 10 {last:.5f}; validation ({len(ft.val_ids)} view(s) "
+        f"{rec.val_hw[1]}x{rec.val_hw[0]}) psnr_nr_fine {val_psnr:.3f} dB "
+        f"at the last (by view and validation "
+        f"{', '.join(f'{v:.3f}' for v in rec.views_psnr)})")
+    return float(np.median(timed)), val_psnr
+
+
+def ft_phase(GA, R, dev, work, weights, parent=None, profile=FT_PROFILE,
+             gen_profile=GEN_PROFILE, init_gathers=None,
+             write=True, what="finetuning", label="phase 9"):
+    """Phase 9: ``FtTrainer(cfg).run()`` on the card with the finetuning
+    config's fields (``FT_PROFILE``) and these cuts (``FT_CUTS``): a
+    NeRF-synthetic sphere fabricated under ``work`` (100 train views at
+    800x800 with depth maps, the 6 val views) in place of lego; the gen
+    model (``GEN_PROFILE``) with the trained ``tools/bench_weights.npz``
+    as its checkpoint; 3 warm-up and 30 timed steps; one validation over
+    the 6 val views at the end. The run held by ``ft_run`` (gathers a
+    step and by map, the init's and the validation's, ray_feats moved
+    where selected) and reported by ``ft_summary``; the validation's
+    psnr_nr_fine >= ``PSNR_FLOOR``; one profiled step; and one step's
+    gradients card vs CPU (``ft_grad_check``). The last step's two 64-ch
+    map gathers are timed as backward rows on their real coords
+    (``real_backward_rows``). Returns the phase's gather launches (forward
+    by instantiation, and backward), the fine pass's row and the median
+    step seconds.
+
+    Phase 11 is the same with ``profile`` FT_CV_PROFILE, ``gen_profile``
+    GEN_CV_PROFILE and its weights, ``init_gathers`` 0 (the cost-volume
+    init gathers nothing; by default one diff gather a reference view)
+    and the scene phase 9 wrote (``write`` False).
+    """
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
+    from neuray_tpu_torch.train.ft_trainer import FtTrainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_root = work / "ft_data"
+    t0 = time.perf_counter()
+    if write:
+        shutil.rmtree(data_root, ignore_errors=True)
+        write_nerf_synthetic_sphere(str(data_root), FT_TRAIN_VIEWS, H,
+                                    n_test=CLI_TEST_VIEWS)
+    t_write = time.perf_counter() - t0
+    cfg = {**profile, **FT_CUTS, "output_root": str(work)}
+    shutil.rmtree(work / cfg["name"], ignore_errors=True)
+    write_gen_checkpoint(weights, work, gen_profile)
+    DB.DATA_ROOT = str(data_root)
+    t0 = time.perf_counter()
+    trainer = FtTrainer(cfg)
+    t_build = time.perf_counter() - t0
+    ft = trainer.ft
+    rec = ft_run(GA, R, trainer, what, len(ft.ref_ids)
+                 if init_gathers is None else init_gathers)
+    log(f"{what}: scene written in {t_write:.1f} s ({FT_TRAIN_VIEWS} + "
+        f"{len(ft.val_ids)} + 1 views {H}x{W}), FtTrainer built in "
+        f"{t_build:.1f} s, ray_feats {list(ft.ray_feats.shape)} from the gen "
+        f"model's init net in {rec.init['s']:.2f} s ({rec.init['launches']} "
+        f"diff gathers)")
+    step_s, val_psnr = ft_summary(trainer, rec, what)
     if not val_psnr >= PSNR_FLOOR:
         raise RuntimeError(f"{what} validation psnr_nr_fine "
                            f"{val_psnr:.3f} dB < {PSNR_FLOOR}")
-    _, fine = real_backward_rows(GA, dev, f"feats 1/4 res, {label}'s last "
-                                 "step", captured, (H, W), *fmap[1:3], parent)
+    _, fine = real_backward_rows(
+        GA, dev, f"feats 1/4 res, {label}'s last step",
+        [c[1:3] for c in rec.captured], (H, W), *rec.fmap[1:3], parent)
     que_i, ref_idx = ft.sample_train_indices(np.random.RandomState(0))
     que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(0))
-    profile_step(lambda: train_step((ref_idx, que, que_i)), f"{what} step")
+    profile_step(lambda: trainer.train_step((ref_idx, que, que_i)),
+                 f"{what} step")
     ft_grad_check(dev, work, cfg, what)
-    return launches, backward, fine
+    return rec.launches, rec.backward, fine, step_s
 
 
 def ft_grad_check(dev, work, cfg, what="finetuning"):
     """One finetuning step's gradients on the card and on the CPU, every
     parameter ``ray_feats`` included, from the gen model's init (read from
     the checkpoint ``write_gen_checkpoint`` wrote) on a reduced fabricated
-    scene (``FT_GRAD_SCENE``, ``FT_GRAD_CHECK``) with the same inputs and
-    fine draws (a CPU generator of one seed on both sides), each within
-    ``GRAD_BOUND`` of its norm plus ``GRAD_FLOOR`` (``compare_grads``):
-    with the card's own fine depths, and again with the CPU's. The fine
-    sampler turns the coarse hit_prob's rounding into a far larger move
-    of the fine depths (ROADMAP Queue 3, fault 3), which the second
-    comparison takes out."""
+    scene (``FT_GRAD_SCENE``, ``FT_GRAD_CHECK``), by
+    ``ft_grad_compare``."""
     from neuray_tpu_torch.data import database as DB
     from neuray_tpu_torch.data.synthetic import write_nerf_synthetic_sphere
     from neuray_tpu_torch.models.ft import FtRenderer
-    from neuray_tpu_torch.train.losses import build_losses
     root = work / "ft_grad_data"
     shutil.rmtree(root, ignore_errors=True)
     write_nerf_synthetic_sphere(str(root), **FT_GRAD_SCENE)
@@ -2176,51 +2272,110 @@ def ft_grad_check(dev, work, cfg, what="finetuning"):
     cfg = {**cfg, **FT_GRAD_CHECK}
     cpu = FtRenderer(cfg, "cpu")
     cpu.init_params()
-    state = cpu.state_dict()
-    card = FtRenderer(cfg, dev)
-    card.set_ray_feats(state["ray_feats"])
-    card.load_state_dict(state)
+    ft_grad_compare(dev, cfg, cpu.state_dict(), what, (
+        f"{FT_GRAD_SCENE['n_train']} views {FT_GRAD_SCENE['size']}x"
+        f"{FT_GRAD_SCENE['size']}, {cfg['train_ray_num']} rays through the "
+        f"sphere from {cfg['neighbor_view_num']} views, {DN} + {DN} "
+        f"samples"))
+
+
+def ft_step(ft, cfg, ref_idx, que_i, fine=None, encoder=False):
+    """One finetuning step on ``ft`` (the query's rays from
+    RandomState(1), the fine draws from a CPU generator of seed 11, as on
+    every side), its fine depths replaced by ``fine`` where given.
+    Returns its loss, its gradients (f64 on the CPU), its fine depths and,
+    with ``encoder``, each image encoder call's input, output gradient
+    and ReLU masks (``relu_tape``) on the CPU (the encoder runs on the
+    reference views and on the query's for the self-hit path)."""
+    from neuray_tpu_torch.train.losses import build_losses
+    seen, own, calls = [], ft.net._fine_depth, []
+
+    def fine_depth(*args):
+        d = own(*args) if fine is None else fine[len(seen)].to(
+            args[0].device)
+        seen.append(d.detach().cpu())
+        return d
+
+    def keep(module, inputs, output):
+        output.retain_grad()
+        calls.append((inputs[0].detach(), output))
+
+    ft.net._fine_depth = fine_depth
+    enc = ft.net.image_encoder
+    hook = enc.register_forward_hook(keep) if encoder else None
+    masks, restore = relu_tape(enc) if encoder else ([], lambda: None)
+    try:
+        ft.zero_grad(set_to_none=True)
+        que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(1))
+        out = ft(ref_idx, que, que_i, torch.Generator().manual_seed(11))
+        losses = build_losses(cfg)(out, {})
+        total = sum(v.mean() for k, v in losses.items()
+                    if k.startswith("loss"))
+        total.backward()
+    finally:
+        restore()
+        if hook is not None:
+            hook.remove()
+        del ft.net._fine_depth
+    per = len(masks) // max(len(calls), 1)
+    io = [(x.cpu(), y.grad.cpu(), masks[i * per:(i + 1) * per])
+          for i, (x, y) in enumerate(calls)]
+    grads = {n: p.grad.cpu().double() for n, p in ft.named_parameters()
+             if p.grad is not None}
+    return total.item(), grads, seen, io
+
+
+def ft_grad_compare(dev, cfg, state, what, scene, witness=False):
+    """One finetuning step's gradients from ``state`` in ``cfg`` on the
+    CPU and on the card, with the same inputs and fine draws
+    (``ft_step``): each parameter within ``GRAD_BOUND`` of its norm plus
+    ``GRAD_FLOOR`` (``compare_grads``) with each side's own fine depths,
+    and again with the card given the CPU's. The fine sampler turns the
+    coarse hit_prob's rounding into a far larger move of the fine depths
+    (ROADMAP Queue 3, fault 3), which the second comparison takes out.
+    ``witness`` (phase 15's padded birds): the first comparison is
+    printed only, and in the second the image encoder's leaves are held,
+    as phase 12 holds them, to their f64 witness with the card's own ReLU
+    masks and the two exact witnesses to each other (summed over its two
+    calls)."""
+    from neuray_tpu_torch.models.ft import FtRenderer
+    sides = {}
+    for device in ("cpu", dev):
+        ft = sides[str(device)] = FtRenderer(cfg, device)
+        ft.set_ray_feats(state["ray_feats"])
+        ft.load_state_dict(state)
+    cpu, card = sides["cpu"], sides[str(dev)]
     que_i, ref_idx = cpu.sample_train_indices(np.random.RandomState(0))
 
-    def step(ft, fine=None):
-        """One step's loss, gradients and fine depths, the fine depths
-        replaced by ``fine`` where given."""
-        seen, own = [], ft.net._fine_depth
+    def f64(io):
+        """A side's f64 witnesses of the image encoder summed over its
+        calls: with f64's own ReLU masks, with the side's, and the count
+        of elements where they differ."""
+        enc = cpu.net.image_encoder
+        exact, replayed, flips = {}, {}, 0
+        for x, g, m in io:
+            e, _, own_masks = encoder_f64(enc, x, g, prefix="net.image_encoder")
+            r = encoder_f64(enc, x, g, masks=m, prefix="net.image_encoder")[0]
+            for k in e:
+                exact[k] = exact.get(k, 0) + e[k]
+                replayed[k] = replayed.get(k, 0) + r[k]
+            flips += sum(int((a != b).sum()) for a, b in zip(own_masks, m))
+        return exact, replayed, flips
 
-        def fine_depth(*args):
-            d = own(*args) if fine is None else fine[len(seen)].to(dev)
-            seen.append(d.detach().cpu())
-            return d
-
-        ft.net._fine_depth = fine_depth
-        try:
-            ft.zero_grad(set_to_none=True)
-            que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(1))
-            out = ft(ref_idx, que, que_i, torch.Generator().manual_seed(11))
-            losses = build_losses(cfg)(out, {})
-            total = sum(v.mean() for k, v in losses.items()
-                        if k.startswith("loss"))
-            total.backward()
-        finally:
-            del ft.net._fine_depth
-        grads = {n: p.grad.cpu().double() for n, p in ft.named_parameters()
-                 if p.grad is not None}
-        return total.item(), grads, seen
-
-    cpu_total, cpu_grads, cpu_fine = step(cpu)
-    desc = (f"{what} gradients, card vs CPU ({FT_GRAD_SCENE['n_train']} "
-            f"views {FT_GRAD_SCENE['size']}x{FT_GRAD_SCENE['size']}, "
-            f"{cfg['train_ray_num']} rays through the sphere from "
-            f"{cfg['neighbor_view_num']} views, {DN} + {DN} samples, "
-            f"ray_feats {list(state['ray_feats'].shape)})")
-    card_total, card_grads, card_fine = step(card)
-    compare_grads(card_grads, cpu_grads, desc + ", each its own fine depths")
+    cpu_r = ft_step(cpu, cfg, ref_idx, que_i, encoder=witness)
+    card_r = ft_step(card, cfg, ref_idx, que_i)
+    given = ft_step(card, cfg, ref_idx, que_i, cpu_r[2], encoder=witness)
+    desc = (f"{what} gradients, card vs CPU ({scene}, ray_feats "
+            f"{list(state['ray_feats'].shape)})")
+    compare_grads(card_r[1], cpu_r[1], desc + ", each its own fine depths",
+                  None, not witness)
     moved = max((a - b).abs().max().item()
-                for a, b in zip(card_fine, cpu_fine))
-    compare_grads(step(card, cpu_fine)[1], cpu_grads,
-                  desc + ", the card given the CPU's fine depths")
-    log(f"{what} loss, card vs CPU: {card_total:.6f} vs {cpu_total:.6f};"
-        f" the fine depths differ by up to {moved:.3g}")
+                for a, b in zip(card_r[2], cpu_r[2]))
+    compare_grads(given[1], cpu_r[1],
+                  desc + ", the card given the CPU's fine depths",
+                  (f64(given[3]), f64(cpu_r[3])) if witness else None, True)
+    log(f"{what} loss, card vs CPU: {card_r[0]:.6f} vs {cpu_r[0]:.6f}; the "
+        f"fine depths differ by up to {moved:.3g}")
 
 
 # phase 12: configs/train/gen/neuray_gen_depth_train.yaml through the port's
@@ -2617,7 +2772,7 @@ def gen_cli_phase(GA, R, dev, weights, parent=None):
     against the CPU's and the ResUNets' against their f64 witness
     (``grad_check``); the real-coordinate kernel rows
     (``real_coord_rows``). Returns (launches by instantiation, backward
-    launches, forward rows, backward rows)."""
+    launches, forward rows, backward rows, the median step seconds)."""
     from neuray_tpu_torch.data import database as DB
     from neuray_tpu_torch.utils.codec import read_jpeg
     gc.collect()
@@ -2688,7 +2843,7 @@ def gen_cli_phase(GA, R, dev, weights, parent=None):
                    f"{crop['que']['coords'].shape[1]} rays through the "
                    f"sphere, {DN} + {DN} samples)", witness=True)
     fwd, bwd = real_coord_rows(GA, dev, captured, "phase 12", parent)
-    return launches, backward, fwd, bwd
+    return launches, backward, fwd, bwd, step_s
 
 
 def cv_cli_phase(GA, R, dev):
@@ -3052,6 +3207,7 @@ def cli_phase(GA, R, dev, work, weights):
             if not min(want) >= CLI_GEN_PSNR_FLOOR:
                 raise RuntimeError(f"CLI {what} GT-PSNR {min(want):.3f} dB "
                                    f"< {CLI_GEN_PSNR_FLOOR}")
+        cli_fresh_process(work, weights, render_dir)
     finally:
         restore()
         os.chdir(cwd)
@@ -3062,6 +3218,517 @@ def cli_phase(GA, R, dev, work, weights):
     log(f"self-checks (neuray_tpu_torch/selfcheck.py, 64x64): "
         f"{time.perf_counter() - t0:.2f} s")
     return total
+
+
+# ---------------- phases 15-17 ----------------
+
+# phase 15a: configs/train/gen/neuray_gen_depth_train_fast.yaml (the depth
+# init net's diff gather on the half grid) through the training CLI on
+# phase 12's data, cut as phase 12 (GEN_CLI_CUTS) at FAST_CLI_STEPS steps
+FAST_CLI_CFG = "configs/train/gen/neuray_gen_depth_train_fast.yaml"
+FAST_CLI_STEPS = 20
+FAST_CLI_CUTS = dict(GEN_CLI_CUTS, total_step=FAST_CLI_STEPS,
+                     val_interval=FAST_CLI_STEPS,
+                     save_interval=FAST_CLI_STEPS)
+# phase 15b: the shipped finetuning configs outside NeRF-synthetic, each on
+# a scene fabricated at its reader's real size (data/fabricate.py), from
+# the gen model (the trained tools/bench_weights.npz as its checkpoint).
+# (name, config, writer, its arguments): birds, 20 LLFF originals
+# 4032x3024 read at 1008x756 and padded to 1008x768; fern in the DTU-test
+# layout, 49 views 1600x1200 read at 800x600 and padded to 800x608;
+# desktop in the example layout, 40 views 1280x720 (a 720p phone frame;
+# the reader does not resize), split example_3. The cuts: 3 + 10 steps
+# (of 200,000), the validations (the initial one the configs ask for on
+# birds alone, FT_DB_INITIAL_VALIDATION, and one at the end) on the first
+# of the val views; the gen config's path made absolute
+FT_DB_SCENES = (
+    ("birds", "configs/train/ft/neuray_ft_depth_birds.yaml",
+     "write_llff_colmap", dict(name="birds", n=20, h=3024, w=4032)),
+    ("fern", "configs/train/ft/neuray_ft_depth_fern.yaml",
+     "write_dtu_test", dict(name="fern", n=49, h=1200, w=1600)),
+    ("desktop", "configs/train/ft/example/neuray_ft_desktop_pretrain.yaml",
+     "write_example", dict(name="desktop", n=40, h=720, w=1280)))
+FT_DB_STEPS = WARMUP_STEPS + 10
+FT_DB_CUTS = dict(total_step=FT_DB_STEPS, val_interval=FT_DB_STEPS,
+                  train_log_step=10)
+# the initial validation the configs ask for runs on birds alone (the
+# others' is cut for the run's time, ~8 s each)
+FT_DB_INITIAL_VALIDATION = ("birds",)
+FT_DB_VAL_VIEWS = 1
+# the card-vs-CPU check of one birds step: FT_GRAD_CHECK's rays on 2
+# reference views (the CPU steps the padded 1008x768 maps)
+FT_DB_GRAD_CHECK = dict(FT_GRAD_CHECK, neighbor_view_num=2)
+# phase 17: the direct-rendering branch on phase 4's frame; its colours
+# card vs CPU within the CPU test's bound (tests/test_torch_port_dr.py:
+# the SH fit's f32 inverse, 5e-4 in max and 1e-4 in mean)
+DR_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
+           "pixel_colors_dr_fine")
+DR_BOUND, DR_MEAN_BOUND = 5e-4, 1e-4
+
+
+def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
+    """Phase 15a: the fast training config through the CLI (``FAST_CLI_*``)
+    on phase 12's data (written, ``NEURAY_DATA_ROOT`` set): every step's
+    gathers held (``check_cli_steps``), each step's diff gather on the
+    half grid of that step's reference images ([rfn, ceil(h/2),
+    ceil(w/2), 4]), steps/s beside phase 12's, a profiled step, the
+    validation's psnr_nr_fine; the half-grid diff gather of a 400x608 crop
+    ([8, 200, 304, 4]) timed on its real coordinates (``kernel_row``),
+    and the 64-ch map's rows (``real_coord_rows``). Returns (launches by
+    instantiation, backward launches, forward rows, backward rows)."""
+    from neuray_tpu_torch.models import init_net as N
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff, kept, own = [], {}, N.gather_bilinear_border
+
+    def seen(feats, pts):
+        diff.append(tuple(feats.shape))
+        kept.setdefault(tuple(feats.shape), (feats.detach().clone(),
+                                             pts.detach().clone()))
+        return own(feats, pts)
+
+    N.gather_bilinear_border = seen
+    try:
+        trainer, steps, launches, backward, val, captured, _, wall = \
+            cli_training(GA, R, dev, FAST_CLI_CFG, FAST_CLI_CUTS,
+                         ("llff_fern", "nerf_lego"), GEN_CLI_VAL_VIEWS,
+                         "phase 15a")
+    finally:
+        N.gather_bilinear_border = own
+    step_s = check_cli_steps(steps, FAST_CLI_STEPS, 1, "fast training")
+    want = [(v, -(-h // 2), -(-w // 2), 4) for v, h, w, _ in
+            (s["shape"] for s in steps)]
+    if diff[:len(steps)] != want:
+        raise RuntimeError(f"phase 15a diff gathers on maps "
+                           f"{diff[:len(steps)]}, the half grids {want}")
+    timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
+    fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
+    lego_psnr = val_psnr(trainer.model_dir, "nerf_lego")
+    log(f"phase 15a training ({FAST_CLI_CFG}): {FAST_CLI_STEPS} steps "
+        f"({GEN_CLI_WARMUP} warm-up) on the mixture: step median "
+        f"{step_s:.4f} s = {1 / step_s:.2f} steps/s (range "
+        f"{timed.min():.4f}-{timed.max():.4f} s) beside phase 12's "
+        f"{1 / gen_step_s:.2f} steps/s in this run, peak memory "
+        f"{steps[-1]['peak'] / 2**30:.2f} GiB, run {wall:.1f} s; every "
+        f"step's diff gather on its half grid (maps "
+        f"{sorted(set(want))}); phase {launches} + {backward} backward; "
+        f"validation psnr_nr_fine fern {fern_psnr:.3f} dB, lego "
+        f"{lego_psnr:.3f} dB")
+    from neuray_tpu_torch.utils.config import load_cfg
+    train_cfg = load_cfg(str(Path(__file__).resolve().parent /
+                             FAST_CLI_CFG))["train_dataset_cfg"]
+    batch = trainer.to_device(real_estate_crop(train_cfg,
+                                               GRAD_SAMPLE_CLOCKS[0]))
+    profile_step(lambda: trainer.train_step(batch),
+                 "phase 15a fast training step on a real-estate crop")
+    key = next((k for k in kept if k[1:3] == (TRAIN_H // 2, TRAIN_W // 2)),
+               next(iter(kept)))
+    feats, pts = kept[key]
+    fwd = [kernel_row(
+        GA, "phase 15a half-grid diff gather, real coords", "f32", feats,
+        "map pixels", (GA.gather_bilinear_border, feats, pts),
+        (GA.gather_bilinear_border_ref, feats, pts), pts, False,
+        grid_sample_fn(feats, pts))]
+    more_fwd, bwd = real_coord_rows(GA, dev, captured, "phase 15a", parent)
+    return launches, backward, fwd + more_fwd, bwd
+
+
+def ft_db_phase(GA, R, dev, work, weights, ft_step_s, parent=None):
+    """Phase 15b: each of ``FT_DB_SCENES`` written at its real size under
+    ``work`` (timed), then ``FtTrainer(cfg).run()`` with the shipped
+    config and ``FT_DB_CUTS``, held by ``ft_run`` (6 forward and 4
+    backward gathers a step by map, at the padded shape; the init's diff
+    gathers; the validations'; ray_feats moved in exactly the selected
+    views) and reported by ``ft_summary``, steps/s beside phase 9's, the
+    validation's psnr_nr_fine printed (no floor: the gen weights were
+    trained on other scenes), a profiled step, the step's real 64-ch map
+    gather timed forward and backward (``real_coord_rows``); on birds one
+    step's gradients card vs CPU (``ft_grad_compare``). Returns
+    (launches by instantiation, backward launches, forward rows, backward
+    rows)."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data import fabricate as FB
+    from neuray_tpu_torch.train.ft_trainer import FtTrainer
+    from neuray_tpu_torch.utils.config import load_cfg
+    repo = Path(__file__).resolve().parent
+    total, backward, fwd, bwd = {"f32": 0, "bf16": 0, "u8": 0}, 0, [], []
+    write_gen_checkpoint(weights, work, GEN_PROFILE)
+    for name, cfg_path, writer, kwargs in FT_DB_SCENES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        what = f"phase 15 finetuning {name}"
+        data = work / "ft_db_data"
+        shutil.rmtree(data, ignore_errors=True)
+        t0 = time.perf_counter()
+        getattr(FB, writer)(str(data), **kwargs)
+        t_write = time.perf_counter() - t0
+        cfg = load_cfg(str(repo / cfg_path))
+        cfg.update(FT_DB_CUTS, gen_cfg=str(repo / cfg["gen_cfg"]),
+                   output_root=str(work))
+        if name not in FT_DB_INITIAL_VALIDATION:
+            cfg["validate_initialization"] = False
+        shutil.rmtree(work / cfg["name"], ignore_errors=True)
+        DB.DATA_ROOT = str(data)
+        t0 = time.perf_counter()
+        trainer = FtTrainer(cfg)
+        t_build = time.perf_counter() - t0
+        ft = trainer.ft
+        n_val = len(ft.val_ids)
+        ft.val_ids = ft.val_ids[:FT_DB_VAL_VIEWS]
+        rec = ft_run(GA, R, trainer, what, len(ft.ref_ids))
+        hp, wp = ft.ref_store["imgs"].shape[1:3]
+        h, w = ft.ref_info["imgs"].shape[1:3]
+        log(f"{what} ({cfg_path}, {cfg['database_name']}, split "
+            f"{cfg['database_split']}): scene written in {t_write:.1f} s "
+            f"({kwargs}), FtTrainer built in {t_build:.1f} s; "
+            f"{len(ft.ref_ids)} reference views {wp}x{hp} as padded from "
+            f"their read size by ref_pad_interval "
+            f"{ft.cfg['ref_pad_interval']}, {n_val} val views (the first "
+            f"validated); ray_feats {list(ft.ray_feats.shape)} from the gen "
+            f"model's init net in {rec.init['s']:.2f} s "
+            f"({rec.init['launches']} diff gathers)")
+        step_s, val_psnr = ft_summary(trainer, rec, what)
+        log(f"{what}: {1 / step_s:.2f} steps/s beside phase 9's "
+            f"{1 / ft_step_s:.2f} in this run; validation psnr_nr_fine "
+            f"{val_psnr:.3f} dB")
+        if not np.isfinite(val_psnr):
+            raise RuntimeError(f"{what}: validation psnr {val_psnr}")
+        for k in total:
+            total[k] += rec.launches[k]
+        backward += rec.backward
+        que_i, ref_idx = ft.sample_train_indices(np.random.RandomState(0))
+        que = ft._build_que_train(ref_idx, que_i, np.random.RandomState(0))
+        profile_step(lambda: trainer.train_step((ref_idx, que, que_i)),
+                     f"{what} step")
+        f, b = real_coord_rows(GA, dev, {rec.fmap: rec.captured[0]},
+                               f"phase 15 {name}", parent)
+        fwd += f
+        bwd += b
+        if name == "birds":
+            # the run's final state at the scene's padded size
+            cfg = {**trainer.cfg, **FT_DB_GRAD_CHECK}
+            ft_grad_compare(
+                dev, cfg, {k: v.detach().cpu()
+                           for k, v in trainer.ft.state_dict().items()},
+                what, f"{cfg['train_ray_num']} rays from "
+                f"{cfg['neighbor_view_num']} views "
+                f"{list(ft.ref_store['imgs'].shape[1:3])}", witness=True)
+        del trainer, ft
+    return total, backward, fwd, bwd
+
+
+def cli_fresh_process(work, weights, render_dir):
+    """Phase 14, the TF32 repair: the first exact eval view rendered by
+    ``python -m neuray_tpu_torch.render`` in a fresh process (PyTorch's
+    default flags, which the CLI's ``main`` turns off), under its own
+    working directory with the same checkpoint and scene; its JPEGs equal
+    byte for byte to the frame phase 14 rendered in this process. Prints
+    both processes' TF32 flags."""
+    repo = Path(__file__).resolve().parent
+    fresh = work / "cli_fresh"
+    shutil.rmtree(fresh, ignore_errors=True)
+    write_gen_checkpoint(weights, fresh / "data" / "model", GEN_PROFILE)
+    code = (
+        "import sys, torch\n"
+        "from neuray_tpu_torch import render\n"
+        "def flags():\n"
+        "    return (torch.backends.cuda.matmul.allow_tf32,"
+        " torch.backends.cudnn.allow_tf32)\n"
+        "print('flags before main', flags(), flush=True)\n"
+        "render.main(sys.argv[1:])\n"
+        "print('flags after main', flags(), flush=True)\n")
+    args = ["--database_name", CLI_DATABASE, "--ray_num", str(CLI_RAY_NUM),
+            "--cfg", str(repo / "configs" / "gen" / "neuray_gen_depth.yaml"),
+            "--re", "1"]
+    env = {**os.environ, "NEURAY_DATA_ROOT": str(work / "ft_data"),
+           "PYTHONPATH": str(repo)}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=fresh,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"the render CLI in a fresh process failed: "
+                           f"{proc.stderr[-3000:]}")
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("flags")]
+    here = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    theirs = fresh / "data" / "render" / render_dir.name / \
+        "neuray_gen_depth-eval"
+    ours = work / "cli" / render_dir / "neuray_gen_depth-eval"
+    for name in ("0-nr.jpg", "0-nr_fine.jpg"):
+        if (theirs / name).read_bytes() != (ours / name).read_bytes():
+            raise RuntimeError(f"the fresh process's {name} differs from "
+                               "this process's")
+    log(f"CLI in a fresh process ({time.perf_counter() - t0:.1f} s): "
+        f"{'; '.join(lines)}; this process's flags (matmul, cudnn) {here}; "
+        f"its 0-nr.jpg and 0-nr_fine.jpg equal this process's byte for "
+        f"byte")
+    if lines != ["flags before main (False, True)",
+                 "flags after main (False, False)"]:
+        raise RuntimeError(f"the fresh process's TF32 flags: {lines}")
+
+
+def hold_cli_exact_frame(launches, what):
+    """An exact H x W frame of the render CLI that encodes once launches
+    the f32 gather two times a pass, two passes a CLI_RAY_NUM-ray chunk,
+    and once for the encode's diff features (phase 14's count)."""
+    want = {"f32": 4 * -(-H * W // CLI_RAY_NUM) + 1, "bf16": 0, "u8": 0}
+    if launches != want:
+        raise RuntimeError(f"{what}: gather launches {launches}, expected "
+                           f"{want}")
+
+
+def ref_ckpt_phase(GA, R, dev, work, weights, weights_cv):
+    """Phase 16: the reference's checkpoints. For the depth model
+    (``configs/gen/neuray_gen_depth.yaml``, ``tools/bench_weights.npz``)
+    and the cost-volume one (``neuray_gen_cost_volume.yaml``,
+    ``bench_weights_cv.npz``): the port's state from the ``.npz``
+    (``load_flax_params``) renamed to the reference's keys by the
+    converter's renames run backwards, saved as a reference
+    ``model_best.pth`` (``{"network_state_dict", "step"}``), converted by
+    ``python -m neuray_tpu_torch.convert_reference_ckpt`` (a process of
+    its own) and held, leaf for leaf, equal to the state it came from.
+    Then phase 14's first exact eval view through the render CLI from the
+    converted depth checkpoint: its JPEGs equal phase 14's byte for byte,
+    its gather launches held (``hold_cli_exact_frame``). Returns the
+    launches by instantiation."""
+    from neuray_tpu_torch import render as RC
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
+    from neuray_tpu_torch.utils import reference_ckpt as RCK
+    from neuray_tpu_torch.utils.config import load_cfg
+    from neuray_tpu_torch.utils.params import load_flax_params
+    repo = Path(__file__).resolve().parent
+    root = work / "ref_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    cli = root / "cli"
+    for name, w in (("neuray_gen_depth", weights),
+                    ("neuray_gen_cost_volume", weights_cv)):
+        cfg_path = repo / "configs" / "gen" / f"{name}.yaml"
+        cfg = load_cfg(str(cfg_path))
+        model = NeurayRenderer(RenderConfig.from_cfg(cfg))
+        load_flax_params(model, w)
+        want = model.state_dict()
+        ref_sd, record = RCK.convert_gen_state_dict(
+            want, **RCK.gen_flags(cfg), reverse=True)
+        pth = root / name / "model_best.pth"
+        pth.parent.mkdir(parents=True)
+        torch.save({"network_state_dict": ref_sd, "step": 0}, pth)
+        out = cli / "data" / "model" / cfg["name"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "neuray_tpu_torch.convert_reference_ckpt",
+             "--torch_ckpt", str(pth), "--cfg", str(cfg_path), "--out",
+             str(out)], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"the converter failed: {proc.stderr[-3000:]}")
+        got = torch.load(out / "ckpt_best.pt", weights_only=True)["params"]
+        same = set(got) == set(want) and all(
+            torch.equal(got[k], v) for k, v in want.items())
+        kinds = {}
+        for _, _, kind in record:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        log(f"reference checkpoint {name}: {len(ref_sd)} reference keys "
+            f"({kinds}) written, converted in {time.perf_counter() - t0:.1f}"
+            f" s by python -m neuray_tpu_torch.convert_reference_ckpt, "
+            f"{len(got)} leaves, equal leaf for leaf to load_flax_params "
+            f"of the .npz: {same}")
+        if not same:
+            raise RuntimeError(f"{name}: the converted checkpoint differs "
+                               "from the .npz weights")
+    render_dir = Path("data/render") / CLI_DATABASE.replace("/", "_")
+    root_db, cwd = DB.DATA_ROOT, os.getcwd()
+    DB.DATA_ROOT = str(work / "ft_data")
+    os.chdir(cli)
+    GA.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        RC.main(["--database_name", CLI_DATABASE, "--ray_num",
+                 str(CLI_RAY_NUM), "--cfg", str(repo / "configs" / "gen" /
+                                                 "neuray_gen_depth.yaml"),
+                 "--re", "1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        DB.DATA_ROOT = root_db
+    launches = dict(GA.LAUNCHES_BY_DTYPE)
+    hold_cli_exact_frame(launches, "the frame from the converted checkpoint")
+    for name in ("0-nr.jpg", "0-nr_fine.jpg"):
+        ours = cli / render_dir / "neuray_gen_depth-eval" / name
+        theirs = work / "cli" / render_dir / "neuray_gen_depth-eval" / name
+        if ours.read_bytes() != theirs.read_bytes():
+            raise RuntimeError(f"the frame from the converted checkpoint's "
+                               f"{name} differs from phase 14's")
+    log(f"render CLI from the converted depth checkpoint: eval view 0 in "
+        f"{seconds:.2f} s, gather launches {launches}; its JPEGs equal "
+        f"phase 14's byte for byte")
+    return launches
+
+
+def dr_phase(GA, R, dev, work, weights, ref, que, gt, frame, frame_rays_s):
+    """Phase 17: the direct-rendering branch (``use_dr_prediction``) on
+    phase 4's exact 800x800 frame: warm-up, then a timed frame (encode +
+    ray loop, gather launches held to phase 4's count), every output
+    finite, ``pixel_colors_nr_fine`` bit-equal to phase 4's ``frame``, the
+    GT-PSNR of ``dr`` and ``dr_fine`` printed (the weights were trained
+    without the DR loss: no floor), rays/s beside phase 4's, a profiled
+    chunk; card vs CPU on ``N_CHECK`` centre rays, each pass from the same
+    depths (nr 1e-4; dr ``DR_BOUND`` / ``DR_MEAN_BOUND``); one frame of
+    the render CLI with the DR config (phase 14's first eval view) whose
+    ``-dr.jpg`` and ``-dr_fine.jpg`` equal its driver's, its gather
+    launches held (``hold_cli_exact_frame``); one training
+    step with the DR losses card vs CPU (``grad_check``). Returns the
+    launches by instantiation."""
+    from neuray_tpu_torch import render as RC
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.imgs_info import (
+        build_imgs_info, build_render_imgs_info)
+    from neuray_tpu_torch.data.view_select import select_working_views_db
+    from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
+    from neuray_tpu_torch.ops import sampling as S
+    from neuray_tpu_torch.selfcheck import write_cfg
+    from neuray_tpu_torch.train.losses import build_losses
+    from neuray_tpu_torch.utils.config import load_cfg
+    from neuray_tpu_torch.utils.params import load_flax_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    renderer = NeurayRenderer(RenderConfig(**EXACT_PROFILE,
+                                           use_dr_prediction=True))
+    load_flax_params(renderer, weights)
+    renderer = renderer.to(dev).eval()
+    n_rays = que["coords"].shape[1]
+    n_chunks = -(-n_rays // renderer.cfg.ray_batch_num)
+    R.render_full(renderer, ref, R._take_rays(que, np.arange(2 * CHUNK)),
+                  DR_KEEP)
+    torch.cuda.synchronize()
+    GA.reset_launches()
+    t0 = time.perf_counter()
+    ref_c = R.encode_ref(renderer, ref)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = R.render_rays(renderer, ref_c, que, DR_KEEP)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(GA.LAUNCHES_BY_DTYPE)
+    if GA.LAUNCHES != 2 * 2 * n_chunks + 1:
+        raise RuntimeError(f"DR frame: {GA.LAUNCHES} gather launches, "
+                           f"expected {2 * 2 * n_chunks + 1}")
+    bad = [k for k, v in out.items() if not torch.isfinite(v).all()]
+    if bad or set(out) != set(DR_KEEP):
+        raise RuntimeError(f"DR frame outputs {sorted(out)}, not finite "
+                           f"{bad}")
+    if not torch.equal(out["pixel_colors_nr_fine"],
+                       frame["pixel_colors_nr_fine"]):
+        raise RuntimeError("the DR frame's pixel_colors_nr_fine is not "
+                           "phase 4's")
+    gts = {k: psnr(out[k][0].reshape(H, W, 3).cpu().numpy(), gt)
+           for k in DR_KEEP}
+    log(f"DR frame: {n_rays} rays, encode {t1 - t0:.3f} s, ray loop "
+        f"{t2 - t1:.3f} s = {n_rays / (t2 - t1):.1f} rays/s beside phase "
+        f"4's {frame_rays_s:.1f}, gather launches {launches}; "
+        f"pixel_colors_nr_fine equal to phase 4's bit for bit; GT-PSNR "
+        + ", ".join(f"{k[len('pixel_colors_'):]} {v:.3f} dB"
+                    for k, v in gts.items()))
+    mid = R._take_rays(que, np.arange(CHUNK) + (n_rays - CHUNK) // 2)
+    with torch.inference_mode():
+        profile_step(lambda: renderer.render_chunk(ref_c, mid),
+                     "DR chunk (1024 rays, coarse + fine)")
+
+    # card vs CPU, each pass from the same depths
+    cpu_r = copy.deepcopy(renderer).cpu()
+    ref_cpu = {k: v.cpu() for k, v in ref_c.items()}
+    idx = np.arange(N_CHECK) + (n_rays - N_CHECK) // 2
+    worst = {}
+    with torch.inference_mode():
+        for part in np.array_split(idx, -(-idx.size // CHUNK)):
+            qg = R._take_rays(que, part)
+            qc = {k: v.cpu() for k, v in qg.items()}
+            depth, _ = S.sample_depth(qg["depth_range"], 1, part.size, DN)
+            cg = renderer._render_by_depth(depth, qg, ref_c, False)
+            cc = cpu_r._render_by_depth(depth.cpu(), qc, ref_cpu, False)
+            fine = renderer._fine_depth(depth, cg["hit_prob_nr"],
+                                        qg["depth_range"], DN)
+            fg = renderer._render_by_depth(fine, qg, ref_c, True)
+            fc = cpu_r._render_by_depth(fine.cpu(), qc, ref_cpu, True)
+            for name, a, b in (("coarse", cg, cc), ("fine", fg, fc)):
+                for k in ("pixel_colors_nr", "pixel_colors_dr"):
+                    d = (a[k].cpu() - b[k]).abs()
+                    mx, mean = worst.get(f"{name} {k}", (0.0, 0.0))
+                    worst[f"{name} {k}"] = (max(mx, d.max().item()),
+                                            max(mean, d.mean().item()))
+    log(f"DR in situ: {N_CHECK} rays from #{idx[0]}, card vs CPU (max, "
+        "mean): " + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                              for k, v in worst.items()))
+    for k, (mx, mean) in worst.items():
+        if ("_nr" in k and mx > 1e-4) or ("_dr" in k and (
+                mx > DR_BOUND or mean > DR_MEAN_BOUND)):
+            raise RuntimeError(f"DR card vs CPU: {k} {mx:.3g} / {mean:.3g}")
+    del cpu_r, ref_cpu
+
+    # one frame of the render CLI with the DR config
+    repo = Path(__file__).resolve().parent
+    cli = work / "cli"
+    cfg = {**load_cfg(str(repo / "configs" / "gen" /
+                          "neuray_gen_depth.yaml")),
+           "name": "neuray_gen_depth_dr", "load_ckpt_name": "neuray_gen_depth",
+           "use_dr_prediction": True}
+    cfg_path = write_cfg(cli / "dr.yaml", cfg)
+    root_db, cwd = DB.DATA_ROOT, os.getcwd()
+    DB.DATA_ROOT = str(work / "ft_data")
+    os.chdir(cli)
+    GA.reset_launches()
+    try:
+        RC.main(["--database_name", CLI_DATABASE, "--ray_num",
+                 str(CLI_RAY_NUM), "--cfg", cfg_path, "--re", "1"])
+        torch.cuda.synchronize()
+        database = DB.parse_database_name(CLI_DATABASE)
+    finally:
+        os.chdir(cwd)
+        DB.DATA_ROOT = root_db
+    hold_cli_exact_frame(dict(GA.LAUNCHES_BY_DTYPE), "CLI DR frame")
+    for k in launches:
+        launches[k] += GA.LAUNCHES_BY_DTYPE[k]
+    DB.DATA_ROOT = str(work / "ft_data")
+    try:
+        ref_ids = [i for i in database.get_img_ids(True)
+                   if i.startswith("tr")]
+        img_id = [i for i in database.get_img_ids() if i.startswith("te")][0]
+        pose = database.get_pose(img_id).astype(np.float32)
+        refs = select_working_views_db(database, ref_ids, pose[None], 8)[0]
+        ref_v = {k: torch.from_numpy(v).to(dev) for k, v in build_imgs_info(
+            database, list(refs), 16, True, replace_none_depth=True).items()}
+        q = build_render_imgs_info(pose, database.get_K(img_id), (H, W),
+                                   database.get_depth_range(img_id))
+        q.pop("shape")
+        q = {k: torch.from_numpy(v).to(dev) for k, v in q.items()}
+    finally:
+        DB.DATA_ROOT = root_db
+    cli_r = NeurayRenderer(RenderConfig.from_cfg(
+        {**cfg, "ray_batch_num": CLI_RAY_NUM}))
+    load_flax_params(cli_r, weights)
+    cli_r = cli_r.to(dev).eval()
+    drv = R.render_rays(cli_r, R.encode_ref(cli_r, ref_v), q, DR_KEEP)
+    frame_dir = cli / "data" / "render" / CLI_DATABASE.replace("/", "_") / \
+        "neuray_gen_depth_dr-eval"
+    for key in DR_KEEP:
+        same_jpeg(frame_dir / f"0-{key[len('pixel_colors_'):]}.jpg", drv,
+                  key, "CLI DR frame 0")
+    log("CLI DR frame: 0-nr.jpg, 0-nr_fine.jpg, 0-dr.jpg and 0-dr_fine.jpg "
+        "equal its driver's called directly")
+    del cli_r, renderer
+
+    # one training step with the DR losses, card vs CPU
+    train_cfg = {**TRAIN_PROFILE, "use_dr_prediction": True,
+                 "use_dr_loss": True, "use_dr_fine_loss": True}
+    grad_check(SimpleNamespace(
+        renderer=NeurayRenderer(RenderConfig.from_cfg(train_cfg)),
+        loss_fn=build_losses(train_cfg)), dev, weights,
+        what=f"DR training gradients (use_dr_loss, use_dr_fine_loss), card "
+        f"vs CPU ({GRAD_CHECK_DATA}, {DN} + {DN} samples, rays through the "
+        f"sphere)")
+    return launches
 
 
 def load_gather(root):
@@ -3093,6 +3760,7 @@ def main():
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device")
+    t_start = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from neuray_tpu_torch.data.synthetic import make_query, make_sphere_scene
     from neuray_tpu_torch.models import renderer as R
@@ -3175,6 +3843,7 @@ def main():
     frame_psnr = psnr(img, gt)
     coarse_psnr = psnr(
         out["pixel_colors_nr"][0].reshape(H, W, 3).cpu().numpy(), gt)
+    frame_rays_s = n_rays / (t2 - t1)
     log(f"frame: {n_rays} rays, encode {t1 - t0:.3f} s, ray loop "
         f"{t2 - t1:.3f} s = {n_rays / (t2 - t1):.1f} rays/s "
         f"({n_rays / (t2 - t0):.1f} rays/s with the encode), "
@@ -3193,32 +3862,48 @@ def main():
     train_launches, backward_launches = train_phase(
         GA, dev, Path(__file__).resolve().parent, weights, parent)
     counted.append(train_launches)
-    ft_launches, ft_backward, ft_fine = ft_phase(
-        GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
-        weights, parent)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    ft_launches, ft_backward, ft_fine, ft_step_s = ft_phase(
+        GA, R, dev, work, weights, parent)
     counted.append(ft_launches)
     weights_cv = load_params_npz(str(
         Path(__file__).resolve().parent / "tools" / "bench_weights_cv.npz"))
     cv_launches, cv_rows = cv_phase(GA, R, dev, weights_cv)
     counted += cv_launches
-    cv_ft_launches, cv_ft_backward, cv_ft_fine = ft_phase(
-        GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
-        weights_cv, parent, FT_CV_PROFILE, GEN_CV_PROFILE, 0, False,
-        "finetuning from the cost volume", "phase 11")
+    cv_ft_launches, cv_ft_backward, cv_ft_fine, _ = ft_phase(
+        GA, R, dev, work, weights_cv, parent, FT_CV_PROFILE, GEN_CV_PROFILE,
+        0, False, "finetuning from the cost volume", "phase 11")
     counted.append(cv_ft_launches)
-    gen_launches, gen_backward, gen_rows, gen_bwd_rows = gen_cli_phase(
-        GA, R, dev, weights, parent)
+    gen_launches, gen_backward, gen_rows, gen_bwd_rows, gen_step_s = \
+        gen_cli_phase(GA, R, dev, weights, parent)
     cv_cli_launches, cv_cli_backward = cv_cli_phase(GA, R, dev)
     counted += [gen_launches, cv_cli_launches]
-    counted.append(cli_phase(
-        GA, R, dev, Path(__file__).resolve().parent / "build" / "chip_smoke",
-        weights))
+    counted.append(cli_phase(GA, R, dev, work, weights))
+    t0 = time.perf_counter()
+    fast_launches, fast_backward, fast_rows, fast_bwd_rows = fast_cli_phase(
+        GA, R, dev, gen_step_s, parent)
+    log(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    db_launches, db_backward, db_rows, db_bwd_rows = ft_db_phase(
+        GA, R, dev, work, weights, ft_step_s, parent)
+    log(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ref_launches = ref_ckpt_phase(GA, R, dev, work, weights, weights_cv)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dr_launches = dr_phase(GA, R, dev, work, weights, ref, que, gt, out,
+                           frame_rays_s)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    counted += [fast_launches, db_launches, ref_launches, dr_launches]
     kernel_stats["f32"]["max_abs_err"] = max(
         [kernel_stats["f32"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in cv_rows + gen_rows])
+        + [r["max_abs_err"] for r in cv_rows + gen_rows + fast_rows
+           + db_rows])
     backward_stats["max_abs_err"] = max(
         [backward_stats["max_abs_err"], ft_fine["max_abs_err"],
-         cv_ft_fine["max_abs_err"]] + [r["max_abs_err"] for r in gen_bwd_rows])
+         cv_ft_fine["max_abs_err"]]
+        + [r["max_abs_err"] for r in gen_bwd_rows + fast_bwd_rows
+           + db_bwd_rows])
 
     source = "neuray_tpu_torch/csrc/gather_bilinear_border.cu"
     log(json.dumps({"kernels": [{
@@ -3229,12 +3914,15 @@ def main():
         "name": "gather_bilinear_border_backward_f32", "route": "cuda",
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
         "launches": (backward_launches + ft_backward + cv_ft_backward
-                     + gen_backward + cv_cli_backward),
+                     + gen_backward + cv_cli_backward + fast_backward
+                     + db_backward),
         **backward_stats,
         "real_ft_fine": {"shape": ft_fine["shape"],
                          "points": ft_fine["points"],
                          "max_abs_err": ft_fine["max_abs_err"],
                          **row_stats(ft_fine)}}]}))
+    log(f"chip_smoke.py: the whole run took "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

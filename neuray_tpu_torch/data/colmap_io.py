@@ -151,7 +151,8 @@ def read_points3d_binary(path: str) -> Dict[int, Point3D]:
 
 
 def read_array(path: str) -> np.ndarray:
-    """A dense map file -> f32 [h, w, c], squeezed ([h, w] for c = 1)."""
+    """A dense map file -> f32 [h, w, c], squeezed ([h, w] for c = 1), an
+    array of its own (writable: readers mask it in place)."""
     with open(path, "rb") as f:
         header = b""
         amp = 0
@@ -163,7 +164,7 @@ def read_array(path: str) -> np.ndarray:
         w, h, c = (int(x) for x in header.decode("ascii").split("&")[:3])
         data = np.frombuffer(f.read(), dtype=np.float32)
     arr = data.reshape((w, h, c), order="F").transpose(1, 0, 2)
-    return np.squeeze(np.ascontiguousarray(arr))
+    return np.squeeze(np.array(arr, order="C"))
 
 
 def write_array(path: str, arr: np.ndarray) -> None:
@@ -220,3 +221,16 @@ def rotmat2qvec(R: np.ndarray) -> np.ndarray:
     z = np.copysign(z, R[1, 0] - R[0, 1])
     q = np.asarray([w, x, y, z])
     return q / np.linalg.norm(q)
+
+
+def write_points3d_binary(path: str, points: Dict[int, Point3D]) -> None:
+    """``points`` as a ``points3D.bin`` that ``read_points3d_binary``
+    reads back."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for p in points.values():
+            f.write(struct.pack("<Q3d3Bd", p.id, *p.xyz,
+                                *np.asarray(p.rgb, np.uint8), p.error))
+            track = np.stack([p.image_ids, p.point2d_idxs], -1).astype("<i4")
+            f.write(struct.pack("<Q", len(track)))
+            f.write(track.tobytes())

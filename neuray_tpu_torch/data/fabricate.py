@@ -1,5 +1,5 @@
-"""Fabricated scenes of the five training families and of LLFF's COLMAP
-captures, written in each family's published on-disk layout, for the
+"""Fabricated scenes of the five training families, of LLFF's COLMAP
+captures, of the DTU test set and of the example (COLMAP) layout, written in each family's published on-disk layout, for the
 tests and ``chip_smoke.py`` (the real captures are not in the
 repository).
 
@@ -291,6 +291,63 @@ def write_llff_colmap(root, name="fern", n=20, h=3024, w=4032, seed=0
     _write_all(jobs)
     _write_depths(base / "colmap_depth", depths)
     return f"llff_colmap/{name}/high"
+
+
+def write_dtu_test(root, name="scan24", n=6, h=1200, w=1600, seed=0) -> str:
+    """dtu_test/<name>: IDR's layout (``image/``, ``mask/<i:03>.png``,
+    ``cameras.npz``), ``depth_range.npy`` and ``colmap_depth/`` at half
+    the size (800 wide for 1600). The reader scales K from 1600x1200, so
+    only that size makes images and cameras agree."""
+    rng = np.random.RandomState(seed)
+    base = Path(root) / "dtu_test" / name
+    for sub in ("image", "mask", "colmap_depth"):
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    K = _K(1.2 * w, w, h)
+    Kd = K * [[0.5], [0.5], [1]]
+    cams, jobs = {}, []
+    for i, pose in enumerate(_cluster(rng, n, 2.5)):
+        cams[f"world_mat_{i}"] = np.concatenate(
+            [K @ pose, [[0.0, 0, 0, 1]]], 0)
+        rgb, _, hit = _render(pose, K, h, w)
+        _, depth, _ = _render(pose, Kd, h // 2, w // 2)
+        jobs += [(base / "image" / f"{i:06}.png", rgb),
+                 (base / "mask" / f"{i:03}.png",
+                  np.repeat(hit[..., None], 3, 2).astype(np.uint8) * 255)]
+        colmap_io.write_array(str(base / "colmap_depth" / f"{i}.jpg.geometric.bin"),
+                      depth)
+    np.savez(base / "cameras.npz", **cams)
+    np.save(base / "depth_range.npy", np.asarray([1.0, 4.0], np.float32))
+    _write_all(jobs)
+    return f"dtu_test/{name}/black_{w // 2}"
+
+
+def write_example(root, name="desk", n=6, h=48, w=64, seed=0) -> str:
+    """example/<name>: a COLMAP sparse model (``sparse/0``, points
+    included), JPEG images and dense depths in ``dense/stereo/
+    depth_maps/``."""
+    rng = np.random.RandomState(seed)
+    base = Path(root) / "example" / name
+    (base / "images").mkdir(parents=True, exist_ok=True)
+    K = _K(1.2 * w, w, h)
+    poses = _cluster(rng, n, 4.0)
+    names = [f"frame_{i}.jpg" for i in range(n)]
+    jobs, depths = [], []
+    for pose, fn in zip(poses, names):
+        rgb, depth, _ = _render(pose, K, h, w)
+        jobs.append((base / "images" / fn, rgb))
+        depths.append((f"{fn}.geometric.bin", depth))
+    _write_colmap_model(base / "sparse" / "0", poses, K, w, h, names)
+    pts = rng.randn(40, 3)
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    none = np.zeros(0, np.int32)
+    colmap_io.write_points3d_binary(
+        str(base / "sparse" / "0" / "points3D.bin"),
+        {k + 1: colmap_io.Point3D(k + 1, p, np.array([200, 100, 50]), 0.5,
+                                  none, none)
+         for k, p in enumerate(pts)})
+    _write_all(jobs)
+    _write_depths(base / "dense" / "stereo" / "depth_maps", depths)
+    return f"example/{name}/raw"
 
 
 def write_training_mixture(root, gso_size=512, dtu=(1200, 1600),

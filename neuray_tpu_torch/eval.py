@@ -22,7 +22,7 @@ It needs two local files and downloads nothing:
     ``data/lpips_vgg.pth`` or ``data/lpips/vgg.pth``.
 
 Without them the CLI prints ``LPIPS unavailable: <reason>`` and no LPIPS
-number.
+number. TF32 is off for the run (``utils/device.py: full_f32``).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from neuray_tpu_torch.train.metrics import compute_psnr, compute_ssim
-from neuray_tpu_torch.utils.device import resolve_device
+from neuray_tpu_torch.utils.device import full_f32, resolve_device
 from neuray_tpu_torch.utils.imageio import imread_color
 
 # VGG16's conv blocks: (out_channels, convs); LPIPS taps each block's last
@@ -166,6 +166,7 @@ def main(argv=None):
                         help="a torch device for LPIPS; default CUDA")
     flags = parser.parse_args(argv)
     resolve_device(flags.device)
+    full_f32()
     evaluate(flags.dir_pr, flags.dir_gt, flags.suffix, flags.device)
 
 

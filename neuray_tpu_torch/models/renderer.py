@@ -23,6 +23,14 @@ ray features (finetuning's consistency path, ``models/ft.py``), and
 ``init_net_type=""`` builds no init net (finetuning's renderer, whose
 ray features are parameters).
 
+With ``use_dr_prediction`` each pass also renders directly
+(``_direct_rendering``, the reference's second branch): the views'
+decoded alphas averaged by their visibility, and colours from an SH fit
+of the views' colours weighted by their hit probabilities
+(``ops/sh.py``), or the network's with ``use_nr_color_for_dr``; the
+outputs carry ``pixel_colors_dr`` and ``hit_prob_dr`` (``_fine`` for the
+fine pass), which the DR losses read.
+
 ``use_bf16`` runs the convs and dense layers in bf16 (parameters stay
 f32; their bf16 copies are cast once, ``blocks.ComputeCast``) and
 gathers from a bf16 map and image; with ``gather_quant="u8"`` the map
@@ -69,6 +77,7 @@ from neuray_tpu_torch.models.resunet import ResUNetLight
 from neuray_tpu_torch.models.vis_encoder import DefaultVisEncoder
 from neuray_tpu_torch.ops import geometry as G
 from neuray_tpu_torch.ops import sampling as S
+from neuray_tpu_torch.ops import sh as SH
 from neuray_tpu_torch.ops.compositing import (
     alpha_values2hit_prob, composite_colors)
 from neuray_tpu_torch.ops.interpolate import (
@@ -149,7 +158,6 @@ _SUPPORTED = {
     "dist_decoder_type": ("mixture_logistics",),
     "agg_net_type": ("default",),
     "init_net_type": ("depth", "cost_volume", ""),
-    "use_dr_prediction": (False,),
 }
 
 
@@ -191,6 +199,9 @@ class NeurayRenderer(nn.Module):
             self.init_net = DepthInitNet(cfg.init_diff_scale, dt)
         elif cfg.init_net_type == "cost_volume":
             self.init_net = CostVolumeInitNet(cfg.cost_volume_sn, dt)
+        # the direct rendering's SH regularizers (a buffer, not a weight)
+        self.register_buffer("sh_regs", torch.from_numpy(SH.sh_regs(3)),
+                             persistent=False)
 
     # ---------------- per-scene stages ----------------
 
@@ -305,10 +316,13 @@ class NeurayRenderer(nn.Module):
                                que_dists: torch.Tensor, is_fine: bool):
         decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
         mean, var, vis, aw = decoder(prj["ray_feats"])
-        _, visibility, hit_prob = decoder.compute_prob(
+        alpha, visibility, hit_prob = decoder.compute_prob(
             prj["depth"][..., 0], que_dists[None], mean, var, vis, aw,
             True, ref_depth_range)
         mask = prj["mask"]
+        if self.cfg.use_dr_prediction:
+            gs = self.cfg.alpha_value_ground_state
+            prj["alpha"] = alpha[..., None] * mask + (1.0 - mask) * gs
         prj["vis"] = visibility[..., None] * mask
         prj["hit_prob"] = hit_prob[..., None] * mask
         return prj
@@ -319,6 +333,35 @@ class NeurayRenderer(nn.Module):
         density, colors = agg(prj, que_dir, pos=pos)
         alpha = 1.0 - torch.exp(-F.relu(density))
         hit_prob = alpha_values2hit_prob(alpha)
+        return hit_prob, colors, composite_colors(hit_prob, colors)
+
+    def _direct_rendering(self, prj: Tensors, que_dir: torch.Tensor,
+                          colors_nr: torch.Tensor):
+        """The direct-rendering branch (reference renderer.py:85-125):
+        each sample's alpha is the visibility-weighted mean of the views'
+        decoded alphas (the ground state where no view sees it), its
+        colour the network's (``use_nr_color_for_dr``) or an SH fit of
+        the views' colours weighted by their hit probabilities, evaluated
+        along the query direction (``ops/sh.py``, f32). Returns
+        (hit_prob, colors, pixel_colors)."""
+        c = self.cfg
+        alpha = ((prj["vis"] * prj["alpha"]).sum(dim=0)
+                 / (prj["vis"].sum(dim=0) + 1e-5))[..., 0]   # qn,rn,dn
+        invalid = (prj["mask"][..., 0].sum(dim=0) == 0).to(alpha.dtype)
+        alpha = alpha * (1.0 - invalid) + invalid * c.alpha_value_ground_state
+        if c.use_nr_color_for_dr:
+            colors = colors_nr
+        else:
+            rfn, qn, rn, dn, _ = prj["rgb"].shape
+            pn = qn * rn * dn
+            hit = prj["hit_prob"].reshape(rfn, pn)
+            w = hit / (hit.sum(dim=0, keepdim=True) + 1e-3)
+            theta = SH.sh_fit(prj["dir"].reshape(rfn, pn, 3).transpose(0, 1),
+                              prj["rgb"].reshape(rfn, pn, 3).transpose(0, 1),
+                              w.transpose(0, 1), regs=self.sh_regs)
+            colors = SH.sh_predict(que_dir.reshape(pn, 1, 3), theta)
+            colors = colors[:, 0].reshape(qn, rn, dn, 3)
+        hit_prob = alpha_values2hit_prob(torch.sigmoid(alpha))
         return hit_prob, colors, composite_colors(hit_prob, colors)
 
     def _predict_self_hit_prob(self, que: Tensors, que_depth: torch.Tensor,
@@ -369,6 +412,11 @@ class NeurayRenderer(nn.Module):
             prj, que_dir, is_fine, pos)
         outputs = {"pixel_colors_nr": pixel_colors_nr,
                    "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
+        if c.use_dr_prediction:
+            hit_prob_dr, _, pixel_colors_dr = self._direct_rendering(
+                prj, que_dir, colors_nr)
+            outputs["pixel_colors_dr"] = pixel_colors_dr
+            outputs["hit_prob_dr"] = hit_prob_dr
         if is_train and c.use_self_hit_prob:
             outputs["hit_prob_self"] = self._predict_self_hit_prob(
                 que, que_depth, que_dists, is_fine)
@@ -622,6 +670,7 @@ def chunk_coords(coords: torch.Tensor, chunk: int):
 
 
 DEFAULT_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine",
+                "pixel_colors_dr", "pixel_colors_dr_fine",
                 "render_depth", "render_depth_fine", "ray_mask")
 
 

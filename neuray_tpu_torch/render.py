@@ -30,9 +30,16 @@ at the start of a run). ``--render_type ft`` renders a finetuned scene
 
 Every frame runs on ``--device`` (default CUDA: without a card the CLI
 raises unless ``--device cpu`` is given), every gather through the
-hand-written kernel there. Not ported: the JAX package's orbax
-checkpoints, its segmenting of a frame into bounded device calls (the
-chunk loops bound memory here) and its multi-device mesh.
+hand-written kernel there, with TF32 off (``utils/device.py:
+full_f32``). With ``use_dr_prediction`` the frames also carry the
+direct-rendering colours, written as ``{qi}-dr.jpg`` and
+``{qi}-dr_fine.jpg``. The JAX package renders from orbax checkpoints,
+which ``tools/convert_reference_ckpt.py`` writes from the reference's
+``model_best.pth``; the port's counterpart for that ``.pth`` is
+``python -m neuray_tpu_torch.convert_reference_ckpt``, which writes the
+``ckpt_best.pt`` read here. Not ported: the JAX package's segmenting of a
+frame into bounded device calls (the chunk loops bound memory here) and
+its multi-device mesh.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from neuray_tpu_torch.models import renderer as R
 from neuray_tpu_torch.models.ft import load_gen_state
 from neuray_tpu_torch.train.metrics import color_map_backward
 from neuray_tpu_torch.utils.config import load_cfg
-from neuray_tpu_torch.utils.device import resolve_device
+from neuray_tpu_torch.utils.device import full_f32, resolve_device
 from neuray_tpu_torch.utils.imageio import imwrite
 
 
@@ -143,7 +150,8 @@ class SkipRenderer:
         self.win_tol_db = cfg.get("skip_auto_win_tol_db", 0.05)
         self.win_ref_psnr = cfg.get("skip_auto_win_ref_psnr", 35.0)
         self.keep_base = ("pixel_colors_nr",) + (
-            ("render_depth",) if render_depth else ())
+            ("pixel_colors_dr",) if renderer.cfg.use_dr_prediction
+            else ()) + (("render_depth",) if render_depth else ())
         self.fallback = False
         self.audit_path = audit_path
 
@@ -219,6 +227,8 @@ def render_video_gen(database_name, cfg_fn, pose_type, pose_fn,
                   f'{cfg["name"]}-{pose_type}')
     Path(output_dir).mkdir(exist_ok=True, parents=True)
     keep = ["pixel_colors_nr", "pixel_colors_nr_fine"]
+    if render_cfg.use_dr_prediction:
+        keep += ["pixel_colors_dr", "pixel_colors_dr_fine"]
     if render_depth:
         keep += ["render_depth", "render_depth_fine"]
 
@@ -304,6 +314,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="a torch device; default CUDA")
     flags = parser.parse_args(argv)
+    full_f32()
     args = (flags.database_name, flags.cfg, flags.pose_type, flags.pose_fn,
             flags.depth, flags.ray_num, flags.rb, flags.re, flags.device)
     if flags.render_type == "gen":

@@ -9,13 +9,15 @@ reads the config with the port's YAML reader and trains on the card:
 ``data``), checkpoints, logs and ``vis_val`` images written under the
 config's ``output_root`` (default ``data/model``). ``--device`` names
 another torch device (``cpu`` for a run without a card); without it a
-machine with no CUDA device raises.
+machine with no CUDA device raises. TF32 is off for the run
+(``utils/device.py: full_f32``).
 """
 from __future__ import annotations
 
 import argparse
 
 from neuray_tpu_torch.utils.config import load_cfg
+from neuray_tpu_torch.utils.device import full_f32
 
 
 def main(argv=None):
@@ -26,6 +28,7 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="a torch device; default CUDA")
     flags = parser.parse_args(argv)
+    full_f32()
     cfg = load_cfg(flags.cfg)
     if (cfg.get("network") == "neuray_ft"
             or cfg.get("train_dataset_type") == "ft"):

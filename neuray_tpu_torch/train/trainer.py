@@ -38,7 +38,8 @@ from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
 
-VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine")
+VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
+            "pixel_colors_dr_fine")
 
 
 class Logger:

@@ -150,13 +150,18 @@ def test_vis_img_equals_jax(tmp_path, size):
 
 
 @pytest.mark.parametrize("cfg", ["neuray_gen_depth_train.yaml",
-                                 "neuray_gen_cost_volume_train.yaml"])
+                                 "neuray_gen_cost_volume_train.yaml",
+                                 "neuray_gen_depth_train_fast.yaml"])
 def test_chip_smoke_cuts_only_what_it_names(tmp_path, cfg):
-    """chip_smoke.py phases 12-13 run the shipped gen configs with only
-    their named cuts: the cut copy reads as the file with those keys set."""
+    """chip_smoke.py phases 12, 13 and 15a run the shipped gen configs
+    with only their named cuts: the cut copy reads as the file with those
+    keys set."""
     import chip_smoke
     from neuray_tpu_torch.utils.config import load_cfg
     src = ROOT / "configs" / "train" / "gen" / cfg
-    cuts = {**chip_smoke.GEN_CLI_CUTS, "output_root": str(tmp_path)}
+    assert ("fast" in cfg) == (f"configs/train/gen/{cfg}"
+                               == chip_smoke.FAST_CLI_CFG)
+    cuts = {**(chip_smoke.FAST_CLI_CUTS if "fast" in cfg
+               else chip_smoke.GEN_CLI_CUTS), "output_root": str(tmp_path)}
     chip_smoke.cut_config(src, tmp_path / cfg, cuts)
     assert load_cfg(str(tmp_path / cfg)) == {**load_cfg(str(src)), **cuts}

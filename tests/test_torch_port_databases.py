@@ -16,7 +16,6 @@ wrote it.
 """
 import os
 import shutil
-import struct
 from pathlib import Path
 
 import numpy as np
@@ -30,48 +29,8 @@ from neuray_tpu_torch.data import database as DB
 from neuray_tpu_torch.data import fabricate as F
 from neuray_tpu_torch.data import train_databases as T
 
-# the test families' writers (the training path reads only those of
-# ``data/fabricate.py``)
-def write_points3d_binary(path, points):
-    """``points`` as a ``points3D.bin`` that ``read_points3d_binary``
-    reads back."""
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(points)))
-        for p in points.values():
-            f.write(struct.pack("<Q3d3Bd", p.id, *p.xyz,
-                                *np.asarray(p.rgb, np.uint8), p.error))
-            track = np.stack([p.image_ids, p.point2d_idxs], -1).astype("<i4")
-            f.write(struct.pack("<Q", len(track)))
-            f.write(track.tobytes())
-
-
-def write_dtu_test(root, name="scan24", n=6, h=1200, w=1600, seed=0) -> str:
-    """dtu_test/<name>: IDR's layout (``image/``, ``mask/<i:03>.png``,
-    ``cameras.npz``), ``depth_range.npy`` and ``colmap_depth/`` at half
-    the size (800 wide for 1600)."""
-    rng = np.random.RandomState(seed)
-    base = Path(root) / "dtu_test" / name
-    for sub in ("image", "mask", "colmap_depth"):
-        (base / sub).mkdir(parents=True, exist_ok=True)
-    K = F._K(1.2 * w, w, h)
-    Kd = K * [[0.5], [0.5], [1]]
-    cams, jobs = {}, []
-    for i, pose in enumerate(F._cluster(rng, n, 2.5)):
-        cams[f"world_mat_{i}"] = np.concatenate(
-            [K @ pose, [[0.0, 0, 0, 1]]], 0)
-        rgb, _, hit = F._render(pose, K, h, w)
-        _, depth, _ = F._render(pose, Kd, h // 2, w // 2)
-        jobs += [(base / "image" / f"{i:06}.png", rgb),
-                 (base / "mask" / f"{i:03}.png",
-                  np.repeat(hit[..., None], 3, 2).astype(np.uint8) * 255)]
-        C.write_array(str(base / "colmap_depth" / f"{i}.jpg.geometric.bin"),
-                      depth)
-    np.savez(base / "cameras.npz", **cams)
-    np.save(base / "depth_range.npy", np.asarray([1.0, 4.0], np.float32))
-    F._write_all(jobs)
-    return f"dtu_test/{name}/black_{w // 2}"
-
-
+# blended_mvs's writer (the other families' are ``data/fabricate.py``'s,
+# which the training path and chip_smoke.py use too)
 BLENDED_MVS_UIDS = {"santa": "5be47bf9b18881428d8fbc1d"}
 
 
@@ -102,33 +61,6 @@ def write_blended_mvs(root, name="santa", n=6, h=576, w=768, seed=0) -> str:
     return f"blended_mvs/{name}/half"
 
 
-def write_example(root, name="desk", n=6, h=48, w=64, seed=0) -> str:
-    """example/<name>: a COLMAP sparse model (``sparse/0``, points
-    included), JPEG images and dense depths in ``dense/stereo/
-    depth_maps/``."""
-    rng = np.random.RandomState(seed)
-    base = Path(root) / "example" / name
-    (base / "images").mkdir(parents=True, exist_ok=True)
-    K = F._K(1.2 * w, w, h)
-    poses = F._cluster(rng, n, 4.0)
-    names = [f"frame_{i}.jpg" for i in range(n)]
-    jobs, depths = [], []
-    for pose, fn in zip(poses, names):
-        rgb, depth, _ = F._render(pose, K, h, w)
-        jobs.append((base / "images" / fn, rgb))
-        depths.append((f"{fn}.geometric.bin", depth))
-    F._write_colmap_model(base / "sparse" / "0", poses, K, w, h, names)
-    pts = rng.randn(40, 3)
-    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True)
-    write_points3d_binary(str(base / "sparse" / "0" / "points3D.bin"), {
-        k + 1: C.Point3D(k + 1, p, np.array([200, 100, 50]), 0.5,
-                         np.zeros(0, np.int32), np.zeros(0, np.int32))
-        for k, p in enumerate(pts)})
-    F._write_all(jobs)
-    F._write_depths(base / "dense" / "stereo" / "depth_maps", depths)
-    return f"example/{name}/raw"
-
-
 def write_scenes(root):
     return {
         "gso": F.write_gso(root, size=24),
@@ -138,9 +70,9 @@ def write_scenes(root):
                                            target=(45, 80)),
         "space": F.write_space(root, n=4, h=30, w=50),
         "llff_colmap": F.write_llff_colmap(root, n=9, h=756, w=1008),
-        "dtu_test": write_dtu_test(root, n=4, h=36, w=48),
+        "dtu_test": F.write_dtu_test(root, n=4, h=36, w=48),
         "blended_mvs": write_blended_mvs(root, n=3, h=36, w=48),
-        "example": write_example(root, n=4),
+        "example": F.write_example(root, n=4),
     }
 
 

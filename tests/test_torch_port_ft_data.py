@@ -188,6 +188,17 @@ def test_read_array_equals_jax(tmp_path, shape):
     np.testing.assert_array_equal(ours, arr)
 
 
+def test_read_array_is_writable(tmp_path):
+    """The DTU test set's reader masks a depth map in place: at its read
+    width 800 no resize copies it first (``chip_smoke.py`` phase 15's
+    fern)."""
+    path = str(tmp_path / "map.bin")
+    C.write_array(path, np.ones((6, 8), np.float32))
+    depth = C.read_array(path)
+    assert depth.flags.writeable and depth.flags.c_contiguous
+    depth[0, 0] = 0.0
+
+
 # ---------------- the database ----------------
 
 @pytest.mark.parametrize("background", ["black", "white"])

@@ -154,7 +154,7 @@ def test_cpu_render_never_launches_the_kernel(inputs):
     assert GA.LAUNCHES == before
 
 
-@pytest.mark.parametrize("field,value", [("use_dr_prediction", True)])
+@pytest.mark.parametrize("field,value", [("dist_decoder_type", "gaussian")])
 def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match=field):
         R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
@@ -164,7 +164,7 @@ def test_unported_config_raises(field, value):
     ("init_diff_scale", 2), ("fine_depth_use_all", True),
     ("use_bf16", True), ("gather_quant", "u8"), ("use_depth_loss", True),
     ("use_self_hit_prob", True), ("init_net_type", ""),
-    ("init_net_type", "cost_volume")])
+    ("init_net_type", "cost_volume"), ("use_dr_prediction", True)])
 def test_ported_config_builds(field, value):
     renderer = R.NeurayRenderer(R.RenderConfig(**{**CFG, field: value}))
     assert getattr(renderer.cfg, field) == value
