@@ -15,9 +15,11 @@ Phases, one line each, any failure raising (exit code != 0):
      over the HBM rate against flops over the f32 rate) with its share;
   4. render a full 800x800 novel view of the synthetic sphere from 8
      reference views, 64 coarse + 64 fine samples, with the trained
-     ``tools/bench_weights.npz``: warm-up frame, then a timed frame whose
-     kernel launches are counted; outputs finite, PSNR against the
-     ground-truth image >= 24 dB;
+     ``tools/bench_weights.npz``: a warm-up of ``WARMUP_CHUNKS`` chunks
+     (every kernel of the frame) and of the frame's output allocations,
+     then a timed frame whose kernel
+     launches are counted; outputs finite, PSNR against the ground-truth
+     image >= 24 dB;
   5. 2048 rays through the image centre again from the same encoded
      maps, on the card (kernel) and on the CPU (plain PyTorch): each pass
      agrees to 1e-4 on the same inputs (``in_situ``);
@@ -94,7 +96,8 @@ Phases, one line each, any failure raising (exit code != 0):
      build and JPEG reads timed, a profiled step, one step's gradients on
      each of three real-estate crops (``GRAD_SAMPLE_CLOCKS``) on the card
      against the CPU's, the ResUNet encoders' against an f64 witness
-     (``grad_check``), and the forward and
+     (``grad_check``; taken on the card, held to the CPU's on one crop by
+     ``witness_device_check``), and the forward and
      backward kernels timed on the real coordinates of the GSO map and
      the 400x600 crop's map (``real_coord_rows``);
  13. cost-volume generalization training the same way
@@ -142,6 +145,22 @@ Phases, one line each, any failure raising (exit code != 0):
      4's, the DR colours' GT-PSNR, rays/s beside phase 4's, card vs CPU
      on 2048 centre rays; one render CLI frame whose ``-dr.jpg`` equals
      its driver's; one training step with the DR losses card vs CPU.
+ 18. multi-GPU (``multi_gpu_phase``): 2 spawned ranks (on one card they
+     share it over gloo; one a card over nccl where there are two), the
+     kernel built before they start: (a) phase 4's exact frame through
+     ``make_sharded_render_fn``, within 1e-5 of phase 4's (byte-equality
+     printed); (b) the bench default with ``mesh``, phase 7's keep set;
+     (c) data-parallel steps of phase 12's config on its data and (d)
+     ray-sharded steps of phase 9's on its scene, the first step's
+     averaged gradients within 1e-5 of each leaf's norm of the
+     one-process step on the same inputs, the parameters the same on
+     every rank; (e) the render CLI under torchrun, its JPEGs equal to
+     phase 14's, and the training CLI under torchrun beside the
+     one-process CLI on the same finetuning config and at lr 0: step 1's
+     logged losses equal, each later step's within
+     ``MG_CLI_UPDATE_SHARE`` of the update's effect. Each rank's gather
+     launches, times and peak memory printed beside how the ranks sit on
+     the cards.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``, and its
@@ -179,6 +198,9 @@ import torch
 H = W = 800
 RFN = 8
 CHUNK = 1024
+# phase 4's warm-up: enough chunks to run every kernel of the frame once
+# (a whole frame took 10-13 s of the run; phase 18 needs the time)
+WARMUP_CHUNKS = 8
 DN = 64
 N_CHECK = 2048
 PSNR_FLOOR = 24.0
@@ -388,6 +410,11 @@ def log(*args):
     print(*args, flush=True)
 
 
+# the calls device_ms times with CUDA events where the profiler records
+# no device rows
+EVENT_ITERS = 50
+
+
 def time_ms(fn, *args, warmup=3, iters=20):
     for _ in range(warmup):
         fn(*args)
@@ -410,8 +437,12 @@ def device_ms(fn, *args, n=10, tries=6):
     a row once) or with a
     kernel short of one row a call (seen after the training phases: rows
     dropped) is profiled again, up to ``tries`` windows; the means stand
-    for the rows that came. Returns (ms, device events per call, {short
-    kernel name: its ms per call})."""
+    for the rows that came. Where every window came back empty (seen once
+    on the card, in phase 15b), the call is timed with CUDA events over
+    ``EVENT_ITERS`` calls instead (an upper bound: the wrapper's host time
+    where it exceeds the kernel's), its kernels a call not counted.
+    Returns (ms, device events per call or None, {short kernel name: its
+    ms per call})."""
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
     torch.cuda.synchronize()
@@ -431,11 +462,18 @@ def device_ms(fn, *args, n=10, tries=6):
         if rows and all(len(v) == n for v in rows.values()):
             break
     if not rows:
-        raise RuntimeError(f"torch.profiler recorded no device time in "
-                           f"{tries} windows")
+        ms = time_ms(fn, *args, iters=EVENT_ITERS)
+        log(f"device_ms: torch.profiler recorded no device time in {tries} "
+            f"windows; CUDA events instead, {ms:.5f} ms a call")
+        return ms, None, {"CUDA events, profiler empty": round(ms, 5)}
     by_name = {k: round(sum(v) / len(v) / 1e3, 5)
                for k, v in sorted(rows.items())}
     return sum(by_name.values()), len(events) / n, by_name
+
+
+def per_call_text(per_call):
+    """device_ms's device events a call, or why there is no count."""
+    return "not counted" if per_call is None else f"{per_call:g}"
 
 
 # the bound: NVIDIA H100 SXM's published peaks (HBM3 bytes/s, f32 FLOP/s
@@ -607,10 +645,11 @@ def kernel_row(GA, what, name, feats, entry, kernel, plain, at, masked, lib):
     lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"kernel check: {what} [{v},{fh},{fw},{c}] x [{v},{p},2] {name} "
         f"{entry}: max_abs_err {err:.3g}; kernel device {dev_ms:.4f} ms "
-        f"({per_call:g} launch/call {kernels}), events {ms:.4f} ms; plain "
-        f"{plain_ms:.4f} ms; grid_sample {lib_txt}; bound {nbytes} B "
-        f"({touched} pixels touched) = {1e3 * bound_ms:.2f} us ({bound_by}),"
-        f" share {bound_ms / dev_ms:.3f}")
+        f"({per_call_text(per_call)} launch/call {kernels}), events "
+        f"{ms:.4f} ms; plain {plain_ms:.4f} ms; grid_sample {lib_txt}; "
+        f"bound {nbytes} B ({touched} pixels touched) = "
+        f"{1e3 * bound_ms:.2f} us ({bound_by}), share "
+        f"{bound_ms / dev_ms:.3f}")
     return dict(what=what, entry=entry, dtype=name, shape=[v, fh, fw, c],
                 points=p, max_abs_err=err, device_ms=dev_ms, event_ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
@@ -817,12 +856,12 @@ def backward_row(GA, what, entry, grad_out, at, m, h, w, fh, fw,
         text = (f"; in turns parent {turns[0]:.4f} / {turns[3]:.4f} ms, this"
                 f" {turns[1]:.4f} / {turns[2]:.4f} ms")
     log(f"backward check: {what} [{v},{fh},{fw},{c}] x [{v},{p},2] {entry}: "
-        f"max_abs_err {err:.3g}; kernel device {dev_ms:.4f} ms ({per_call:g}"
-        f" kernels/call {kernels}), events {ms:.4f} ms; plain "
-        f"{plain_ms:.4f} ms; grid_sampler_2d_backward {lib_ms:.4f} ms; bound"
-        f" {nbytes} B = {1e3 * bound_ms:.2f} us ({bound_by}), share "
-        f"{bound_ms / dev_ms:.3f}; {touched} pixels touched, "
-        f"{4 * v * p / max(touched, 1):.1f} taps a pixel, at most "
+        f"max_abs_err {err:.3g}; kernel device {dev_ms:.4f} ms "
+        f"({per_call_text(per_call)} kernels/call {kernels}), events "
+        f"{ms:.4f} ms; plain {plain_ms:.4f} ms; grid_sampler_2d_backward "
+        f"{lib_ms:.4f} ms; bound {nbytes} B = {1e3 * bound_ms:.2f} us "
+        f"({bound_by}), share {bound_ms / dev_ms:.3f}; {touched} pixels "
+        f"touched, {4 * v * p / max(touched, 1):.1f} taps a pixel, at most "
         f"{row['most_taps']} on one{text}")
     return row
 
@@ -1110,7 +1149,9 @@ def expected_focus_launches(kept_rays, n_probe):
 
 def bench_profile(R, GA, renderer, ref, que, gt):
     """Phase 7. Returns the gather launches of its counted frames, by
-    instantiation."""
+    instantiation, and the bench default's frame record (``out``, its
+    ``encode`` and ``render`` seconds: phase 18 holds its sharded twin to
+    it)."""
     n_rays = que["coords"].shape[1]
     stride = BENCH_ARGS["probe_stride"]
     n_probe = -(-H // stride) * -(-W // stride)
@@ -1194,7 +1235,7 @@ def bench_profile(R, GA, renderer, ref, que, gt):
         bench, u8["ref_c"], que, BENCH_ARGS["threshold"], (H, W), stride)
     in_situ(R, bench, u8["ref_c"], que, keep[start:start + N_CHECK],
             (near, far), BF16_PASS_BOUND)
-    return [f["launches"] for f in (u8, bf16, f32)]
+    return [f["launches"] for f in (u8, bf16, f32)], u8
 
 
 def cv_psnr_rays():
@@ -1554,17 +1595,18 @@ def relu_tape(module=None, replay=None):
 
 
 def encoder_f64(encoder, imgs, grad, names=(), masks=None,
-                prefix="image_encoder"):
+                prefix="image_encoder", device="cpu"):
     """The f64 witness: ``encoder`` (a ResUNet of the renderer: the image
-    encoder, the init net's ``res_net``) copied to f64 on the CPU, its
+    encoder, the init net's ``res_net``) copied to f64 on ``device``, its
     InstanceNorms too (the port computes their statistics in f32), run on
     imgs and taken back from ``grad``, the gradient of its output; with
     ``masks`` (an f32 forward's ReLU masks, ``relu_tape``) each ReLU
-    passes where that forward's did. Returns (its parameters' gradients
-    by the renderer's names, under ``prefix``; ``tap`` records of names;
-    its ReLU masks)."""
+    passes where that forward's did. The run's checks take it on the card
+    (f64 there too; ``witness_device_check`` holds it to the CPU's).
+    Returns (its parameters' gradients by the renderer's names, under
+    ``prefix``, on the CPU; ``tap`` records of names; its ReLU masks)."""
     from neuray_tpu_torch.models import blocks
-    enc = copy.deepcopy(encoder).cpu().double()
+    enc = copy.deepcopy(encoder).to(device).double()
     rec, handles = tap(enc, names)
     own = blocks.InstanceNorm.forward
     blocks.InstanceNorm.forward = lambda self, x: \
@@ -1572,7 +1614,8 @@ def encoder_f64(encoder, imgs, grad, names=(), masks=None,
                                           bias=self.bias, eps=self.eps)
     used, restore = relu_tape(replay=masks)
     try:
-        enc(imgs.cpu().double()).backward(grad.cpu().double())
+        enc(imgs.to(device, torch.float64)).backward(
+            grad.to(device, torch.float64))
     finally:
         restore()
         blocks.InstanceNorm.forward = own
@@ -1581,8 +1624,61 @@ def encoder_f64(encoder, imgs, grad, names=(), masks=None,
     if masks is not None and len(used) != len(masks):
         raise RuntimeError(f"the witness made {len(used)} ReLU calls, the "
                            f"forward it replays {len(masks)}")
-    return ({f"{prefix}.{n}": p.grad for n, p in enc.named_parameters()},
-            rec, used)
+    return ({f"{prefix}.{n}": p.grad.cpu()
+             for n, p in enc.named_parameters()}, rec, used)
+
+
+# witness_device_check: the views of a step's encoder input it takes, and
+# its bar on each leaf: both sides are f64 but for the decoder's upsample
+# weights, which the port computes from f32 sample positions
+# (``blocks.upsample2x_align_corners``) that the card and the CPU round
+# apart (up to 3.8e-6 in a weight on the card); the bar is 200x under the
+# GRAD_BOUND the witness holds the card to, the floor for the conv biases
+# that feed an InstanceNorm, whose gradient is 0 but for rounding
+WITNESS_VIEWS = 2
+WITNESS_DEVICE_BOUND, WITNESS_DEVICE_FLOOR = 1e-5, 1e-9
+
+
+def witness_device_check(dev, cfg, weights, io):
+    """The f64 witness (``encoder_f64``) on the card against the same on
+    the CPU: the trained weights' image encoder (``cfg``: the renderer's)
+    on the first ``WITNESS_VIEWS`` views of a step's encoder input ``io``
+    (the CPU side's input, output gradient: ``grad_check``'s record), the
+    card replaying the CPU witness's own ReLU masks; each leaf within
+    ``WITNESS_DEVICE_BOUND`` of its norm plus ``WITNESS_DEVICE_FLOOR``.
+    Both sides timed."""
+    from neuray_tpu_torch.models.renderer import NeurayRenderer
+    from neuray_tpu_torch.utils.params import load_flax_params
+    model = NeurayRenderer(cfg)
+    load_flax_params(model, weights)
+    imgs, grad = io["in"][:WITNESS_VIEWS], io["grad"][:WITNESS_VIEWS]
+    t0 = time.perf_counter()
+    cpu, _, masks = encoder_f64(model.image_encoder, imgs, grad)
+    t1 = time.perf_counter()
+    card = encoder_f64(model.image_encoder, imgs, grad, masks=masks,
+                       device=dev)[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    worst, leaf, small, bad = 0.0, None, 0.0, []
+    for k, b in cpu.items():
+        diff, norm = (card[k] - b).norm().item(), b.norm().item()
+        if diff > WITNESS_DEVICE_BOUND * norm + WITNESS_DEVICE_FLOOR:
+            bad.append((k, diff, norm))
+        if norm > WITNESS_DEVICE_FLOOR / WITNESS_DEVICE_BOUND:
+            if diff / norm >= worst:
+                worst, leaf = diff / norm, k
+        else:
+            small = max(small, diff)
+    log(f"f64 witness, card vs CPU (the image encoder on {WITNESS_VIEWS} "
+        f"views {list(imgs.shape[1:3])}, the CPU's ReLU masks replayed): "
+        f"{len(cpu)} leaves, worst {worst:.3g} of its norm ({leaf}; bound "
+        f"{WITNESS_DEVICE_BOUND:g} + {WITNESS_DEVICE_FLOOR:g}), largest "
+        f"difference of a leaf of norm under "
+        f"{WITNESS_DEVICE_FLOOR / WITNESS_DEVICE_BOUND:g} {small:.3g}; the "
+        f"CPU {t1 - t0:.2f} s, the card {t2 - t1:.2f} s")
+    if bad:
+        raise RuntimeError(f"the f64 witness differs between the card and "
+                           f"the CPU (leaf, difference, norm): {bad}")
 
 
 def grad_check(trainer, dev, weights, sample=None, what=None, witness=False,
@@ -1708,10 +1804,11 @@ def grad_check(trainer, dev, weights, sample=None, what=None, witness=False,
         for name in WITNESSED:
             module, io = trained.get_submodule(name), side[3][name]
             grads, _, masks = encoder_f64(module, io["in"], io["grad"],
-                                          prefix=name)
+                                          prefix=name, device=dev)
             exact.update(grads)
             replayed.update(encoder_f64(module, io["in"], io["grad"],
-                                        masks=io["masks"], prefix=name)[0])
+                                        masks=io["masks"], prefix=name,
+                                        device=dev)[0])
             flips += sum(int((a != b).sum())
                          for a, b in zip(masks, io["masks"]))
         return exact, replayed, flips
@@ -1847,7 +1944,8 @@ def profile_step(run_step, what="training step"):
     """One more call of ``run_step`` (a training step, say) under
     ``torch.profiler``: kernels, device busy time (the kernels' summed
     durations) and its share of the step's wall time, and the five kernel
-    names with the most device time."""
+    names with the most device time; where the profiler recorded no
+    device row, the step's wall time and "not measured"."""
     from torch.profiler import ProfilerActivity, profile
     run_step()
     torch.cuda.synchronize()
@@ -1864,6 +1962,10 @@ def profile_step(run_step, what="training step"):
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)):
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not by_name:
+        log(f"{what} profile: {1e3 * wall:.2f} ms; torch.profiler recorded "
+            f"no device rows: device busy time and idle share not measured")
+        return
     busy = sum(sum(v) for v in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
     log(f"{what} profile: {sum(len(v) for v in by_name.values())} "
@@ -2354,8 +2456,10 @@ def ft_grad_compare(dev, cfg, state, what, scene, witness=False):
         enc = cpu.net.image_encoder
         exact, replayed, flips = {}, {}, 0
         for x, g, m in io:
-            e, _, own_masks = encoder_f64(enc, x, g, prefix="net.image_encoder")
-            r = encoder_f64(enc, x, g, masks=m, prefix="net.image_encoder")[0]
+            e, _, own_masks = encoder_f64(
+                enc, x, g, prefix="net.image_encoder", device=dev)
+            r = encoder_f64(enc, x, g, masks=m, prefix="net.image_encoder",
+                            device=dev)[0]
             for k in e:
                 exact[k] = exact.get(k, 0) + e[k]
                 replayed[k] = replayed.get(k, 0) + r[k]
@@ -2770,7 +2874,9 @@ def gen_cli_phase(GA, R, dev, weights, parent=None):
     timed; one profiled step on a real-estate crop sample (idle share);
     the gradients of the crops of ``GRAD_SAMPLE_CLOCKS`` on the card
     against the CPU's and the ResUNets' against their f64 witness
-    (``grad_check``); the real-coordinate kernel rows
+    (``grad_check``; the witness taken on the card, held to the CPU's on
+    the first crop by ``witness_device_check``); the real-coordinate
+    kernel rows
     (``real_coord_rows``). Returns (launches by instantiation, backward
     launches, forward rows, backward rows, the median step seconds)."""
     from neuray_tpu_torch.data import database as DB
@@ -2836,12 +2942,14 @@ def gen_cli_phase(GA, R, dev, weights, parent=None):
     profile_step(lambda: trainer.train_step(batch),
                  "phase 12 step on a real-estate crop")
     for clock, crop in zip(GRAD_SAMPLE_CLOCKS, crops):
-        grad_check(trainer, dev, weights, crop,
-                   f"training gradients, card vs CPU (a real-estate crop "
-                   f"sample drawn at clock {clock:.0f}: "
-                   f"{list(crop['ref']['imgs'].shape)} ref views, "
-                   f"{crop['que']['coords'].shape[1]} rays through the "
-                   f"sphere, {DN} + {DN} samples)", witness=True)
+        r = grad_check(trainer, dev, weights, crop,
+                       f"training gradients, card vs CPU (a real-estate crop "
+                       f"sample drawn at clock {clock:.0f}: "
+                       f"{list(crop['ref']['imgs'].shape)} ref views, "
+                       f"{crop['que']['coords'].shape[1]} rays through the "
+                       f"sphere, {DN} + {DN} samples)", witness=True)
+        if clock == GRAD_SAMPLE_CLOCKS[0]:
+            witness_device_check(dev, trainer.renderer.cfg, weights, r["io"])
     fwd, bwd = real_coord_rows(GA, dev, captured, "phase 12", parent)
     return launches, backward, fwd, bwd, step_s
 
@@ -3487,7 +3595,8 @@ def ref_ckpt_phase(GA, R, dev, work, weights, weights_cv):
     converter's renames run backwards, saved as a reference
     ``model_best.pth`` (``{"network_state_dict", "step"}``), converted by
     ``python -m neuray_tpu_torch.convert_reference_ckpt`` (a process of
-    its own) and held, leaf for leaf, equal to the state it came from.
+    its own, the two side by side) and held, leaf for leaf, equal to the
+    state it came from.
     Then phase 14's first exact eval view through the render CLI from the
     converted depth checkpoint: its JPEGs equal phase 14's byte for byte,
     its gather launches held (``hold_cli_exact_frame``). Returns the
@@ -3502,41 +3611,54 @@ def ref_ckpt_phase(GA, R, dev, work, weights, weights_cv):
     root = work / "ref_ckpt"
     shutil.rmtree(root, ignore_errors=True)
     cli = root / "cli"
-    for name, w in (("neuray_gen_depth", weights),
-                    ("neuray_gen_cost_volume", weights_cv)):
-        cfg_path = repo / "configs" / "gen" / f"{name}.yaml"
-        cfg = load_cfg(str(cfg_path))
-        model = NeurayRenderer(RenderConfig.from_cfg(cfg))
-        load_flax_params(model, w)
-        want = model.state_dict()
-        ref_sd, record = RCK.convert_gen_state_dict(
-            want, **RCK.gen_flags(cfg), reverse=True)
-        pth = root / name / "model_best.pth"
-        pth.parent.mkdir(parents=True)
-        torch.save({"network_state_dict": ref_sd, "step": 0}, pth)
-        out = cli / "data" / "model" / cfg["name"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "neuray_tpu_torch.convert_reference_ckpt",
-             "--torch_ckpt", str(pth), "--cfg", str(cfg_path), "--out",
-             str(out)], cwd=repo, capture_output=True, text=True,
-            timeout=600)
-        if proc.returncode:
-            raise RuntimeError(f"the converter failed: {proc.stderr[-3000:]}")
-        got = torch.load(out / "ckpt_best.pt", weights_only=True)["params"]
-        same = set(got) == set(want) and all(
-            torch.equal(got[k], v) for k, v in want.items())
-        kinds = {}
-        for _, _, kind in record:
-            kinds[kind] = kinds.get(kind, 0) + 1
-        log(f"reference checkpoint {name}: {len(ref_sd)} reference keys "
-            f"({kinds}) written, converted in {time.perf_counter() - t0:.1f}"
-            f" s by python -m neuray_tpu_torch.convert_reference_ckpt, "
-            f"{len(got)} leaves, equal leaf for leaf to load_flax_params "
-            f"of the .npz: {same}")
-        if not same:
-            raise RuntimeError(f"{name}: the converted checkpoint differs "
-                               "from the .npz weights")
+    jobs = []
+    t0 = time.perf_counter()
+    try:
+        for name, w in (("neuray_gen_depth", weights),
+                        ("neuray_gen_cost_volume", weights_cv)):
+            cfg_path = repo / "configs" / "gen" / f"{name}.yaml"
+            cfg = load_cfg(str(cfg_path))
+            model = NeurayRenderer(RenderConfig.from_cfg(cfg))
+            load_flax_params(model, w)
+            want = model.state_dict()
+            ref_sd, record = RCK.convert_gen_state_dict(
+                want, **RCK.gen_flags(cfg), reverse=True)
+            pth = root / name / "model_best.pth"
+            pth.parent.mkdir(parents=True)
+            torch.save({"network_state_dict": ref_sd, "step": 0}, pth)
+            out = cli / "data" / "model" / cfg["name"]
+            # the two converters run side by side, each a process of its own
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "neuray_tpu_torch.convert_reference_ckpt", "--torch_ckpt",
+                 str(pth), "--cfg", str(cfg_path), "--out", str(out)],
+                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            jobs.append((name, want, ref_sd, record, out, proc))
+        for name, want, ref_sd, record, out, proc in jobs:
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"the converter failed: {err[-3000:]}")
+            got = torch.load(out / "ckpt_best.pt",
+                             weights_only=True)["params"]
+            same = set(got) == set(want) and all(
+                torch.equal(got[k], v) for k, v in want.items())
+            kinds = {}
+            for _, _, kind in record:
+                kinds[kind] = kinds.get(kind, 0) + 1
+            log(f"reference checkpoint {name}: {len(ref_sd)} reference keys"
+                f" ({kinds}) written, converted by python -m "
+                f"neuray_tpu_torch.convert_reference_ckpt within "
+                f"{time.perf_counter() - t0:.1f} s of the first write (the "
+                f"two side by side), {len(got)} leaves, equal leaf for leaf "
+                f"to load_flax_params of the .npz: {same}")
+            if not same:
+                raise RuntimeError(f"{name}: the converted checkpoint "
+                                   "differs from the .npz weights")
+    finally:
+        for *_, proc in jobs:
+            proc.kill()
+            proc.wait()
     render_dir = Path("data/render") / CLI_DATABASE.replace("/", "_")
     root_db, cwd = DB.DATA_ROOT, os.getcwd()
     DB.DATA_ROOT = str(work / "ft_data")
@@ -3731,6 +3853,564 @@ def dr_phase(GA, R, dev, work, weights, ref, que, gt, frame, frame_rays_s):
     return launches
 
 
+# ---------------- phase 18: multi-GPU ----------------
+
+# phase 18: the ranks of parallel/spawn.py (torchrun's counterpart for a
+# script), MG_RANKS of them, rank r on cuda:(r % cards): on one card they
+# share it over gloo (nccl refuses two ranks on one device), on two or more
+# each has its own over nccl (parallel/sharding.py: make_mesh)
+MG_RANKS = 2
+MG_WORKERS = 2            # DataLoader workers a rank (phase 12: 6)
+MG_GEN_STEPS = 6          # data-parallel gen steps: the first held, 5 timed
+MG_FT_STEPS = 6           # ray-sharded finetuning steps, likewise
+MG_CLI_STEPS = 3          # the training CLI's finetuning steps
+# the training CLIs' logged losses, each printed to 5 decimals: two
+# roundings of 5e-6 and 1e-5 left for the sharded run's own rounding
+MG_CLI_LOSS_BOUND = 2e-5
+# after the first update, the share of the update's effect on the loss
+# (the one-process CLI against itself at lr 0) by which the sharded CLI
+# may differ: Adam's first steps move a coordinate by lr whatever its
+# gradient's size, so rounding-level gradients of the other sign part two
+# runs (on the CPU, the one-process CLI at 1 thread against 8 parted by
+# 0.4% of the effect after 1 update and 0.9% after 2)
+MG_CLI_UPDATE_SHARE = 0.1
+MG_TIMEOUT = 600          # the ranks' run, after which they are killed
+MG_FRAME_BOUND = 1e-5     # the sharded exact frame against phase 4's
+# a sharded step's gradient against the one-process step's on the same
+# inputs: within MG_GRAD_BOUND of each leaf's norm plus MG_GRAD_FLOOR (the
+# rounding left in the exactly-zero gradients of conv biases that feed an
+# InstanceNorm); the backward's long bins add with global atomics, so two
+# runs on one card differ in the last bits
+MG_GRAD_BOUND, MG_GRAD_FLOOR = 1e-5, 1e-7
+# the ranks' device: None for the cards (a CPU rehearsal sets "cpu")
+MG_DEVICE = None
+
+
+def mg_cards_label():
+    n = torch.cuda.device_count()
+    return (f"{MG_RANKS} ranks on one card" if n < MG_RANKS
+            else f"{MG_RANKS} ranks on {MG_RANKS} cards")
+
+
+def mg_grad_error(got, want):
+    """The worst leaf of got against want (name -> tensor), relative to
+    the leaf's norm, over leaves above 1000 floors; and the leaves outside
+    MG_GRAD_BOUND * norm + MG_GRAD_FLOOR."""
+    err = {n: ((got[n].float() - w.float()).norm().item(),
+               w.float().norm().item()) for n, w in want.items()}
+    rel = {n: d / g for n, (d, g) in err.items() if g > 1e3 * MG_GRAD_FLOOR}
+    worst = max(rel, key=rel.get)
+    bad = {n: e for n, e in err.items()
+           if not e[0] <= MG_GRAD_BOUND * e[1] + MG_GRAD_FLOOR}
+    return {"worst": rel[worst], "leaf": worst, "leaves": len(err),
+            "bad": bad}
+
+
+def mg_same_on_every_rank(mesh, tensors):
+    """Whether the flat concatenation of tensors equals rank 0's, bit for
+    bit (one broadcast)."""
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    return bool(torch.equal(flat, ref))
+
+
+def mg_rank(mesh, work, spec):
+    """Phase 18 on one rank (a spawned process; ``spec`` from
+    ``multi_gpu_phase``): (a) phase 4's exact frame and (b) phase 7's
+    bench default with ``mesh``, (c) data-parallel steps of phase 12's
+    config, (d) ray-sharded steps of phase 9's; writes its report (and
+    rank 0 the frames) under ``work``."""
+    from neuray_tpu_torch.data import database as DB
+    from neuray_tpu_torch.data.synthetic import make_query, make_sphere_scene
+    from neuray_tpu_torch.models import renderer as R
+    from neuray_tpu_torch.ops import gather as GA
+    from neuray_tpu_torch.parallel import sharding as P
+    from neuray_tpu_torch.train.ft_trainer import FtTrainer
+    from neuray_tpu_torch.train.losses import build_losses
+    from neuray_tpu_torch.train.trainer import Trainer
+    from neuray_tpu_torch.utils.config import load_cfg
+    from neuray_tpu_torch.utils.params import (
+        load_flax_params, load_params_npz)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    GA.load_library()                  # built by the parent: found built
+    rep = {"rank": mesh.rank, "device": str(dev), "backend": mesh.backend}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+        mesh.barrier()
+
+    def counts():
+        return {**GA.LAUNCHES_BY_DTYPE, "backward": GA.BACKWARD_LAUNCHES}
+
+    # (a), (b): the frames
+    weights = load_params_npz(spec["weights"])
+    rng = np.random.RandomState(0)
+    ref_np = make_sphere_scene(rng, RFN, H, W)
+    que_np = make_query(rng, H, W, 0, full_image=True)
+    que_np.pop("imgs")
+    ref = {k: torch.from_numpy(v).to(dev) for k, v in ref_np.items()}
+    que = {k: torch.from_numpy(v).to(dev) for k, v in que_np.items()}
+    exact = R.NeurayRenderer(R.RenderConfig(**EXACT_PROFILE))
+    load_flax_params(exact, weights)
+    exact = exact.to(dev).eval()
+    render = P.make_sharded_render_fn(exact, mesh, R.DEFAULT_KEEP)
+    render(ref, dict(que, coords=que["coords"][:, :CHUNK * mesh.size]))
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    GA.reset_launches()
+    t0 = time.perf_counter()
+    out = render(ref, que)
+    sync()
+    rep["exact"] = {"s": time.perf_counter() - t0, "launches": counts(),
+                    "peak": torch.cuda.max_memory_allocated(dev)}
+    if mesh.is_main:
+        torch.save({k: v.cpu() for k, v in out.items()},
+                   Path(work) / "exact.pt")
+    del out, exact, render
+
+    bench = R.NeurayRenderer(R.RenderConfig(**BENCH_PROFILE))
+    load_flax_params(bench, weights)
+    bench = bench.to(dev).eval()
+
+    def bench_frame():
+        return R.render_frame_probe_focus(bench, R.encode_ref(bench, ref),
+                                          que, image_hw=(H, W), mesh=mesh,
+                                          **BENCH_ARGS)
+
+    bench_frame()
+    sync()
+    GA.reset_launches()
+    t0 = time.perf_counter()
+    out = bench_frame()
+    sync()
+    rep["bench"] = {"s": time.perf_counter() - t0, "launches": counts(),
+                    "kept": out["kept_rays"]}
+    if mesh.is_main:
+        torch.save({"keep_mask": out["keep_mask"],
+                    "pixel_colors_nr_fine": out["pixel_colors_nr_fine"]},
+                   Path(work) / "bench.pt")
+    del out, bench, ref, que
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def own_grads(trainer, losses, module):
+        """The one-process gradient of losses (this process alone)."""
+        total = sum(v.mean() for k, v in losses.items()
+                    if k.startswith("loss"))
+        trainer.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        return {n: (p.grad.detach().clone() if p.grad is not None
+                    else torch.zeros_like(p))
+                for n, p in module.named_parameters()}
+
+    def run_steps(trainer, module, batches, n):
+        times, per_step = [], []
+        for _ in range(n):
+            batch = next(batches)
+            sync()
+            before = counts()
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+        return times, per_step
+
+    # (c): data-parallel gen steps, each rank its own sample
+    trainer = Trainer(load_cfg(spec["gen_cfg"]), mesh=mesh)
+    trainer._start()
+    batches = trainer._batches(0)
+    batch = next(batches)
+    state = trainer.generator.get_state()
+    own = own_grads(trainer, trainer._losses(batch), trainer.renderer)
+    torch.save({n: g.cpu() for n, g in own.items()},
+               Path(work) / f"gen_own{mesh.rank}.pt")
+    trainer.generator.set_state(state)
+    torch.cuda.reset_peak_memory_stats(dev)
+    GA.reset_launches()
+    trainer.train_step(batch)
+    first = counts()
+    avg = {n: p.grad.detach().clone()
+           for n, p in trainer.renderer.named_parameters()}
+    sync()
+    if mesh.is_main:
+        parts = [torch.load(Path(work) / f"gen_own{r}.pt")
+                 for r in range(mesh.size)]
+        mean = {n: sum(p[n] for p in parts).to(dev) / mesh.size
+                for n in parts[0]}
+        rep["gen_grads"] = mg_grad_error(avg, mean)
+    times, per_step = run_steps(trainer, trainer.renderer, batches,
+                                MG_GEN_STEPS - 1)
+    rep["gen"] = {"times": times, "first": first, "per_step": per_step,
+                  "launches": counts(), "shape": tuple(
+                      batch["ref"]["imgs"].shape),
+                  "same": mg_same_on_every_rank(
+                      mesh, list(trainer.renderer.parameters())),
+                  "peak": torch.cuda.max_memory_allocated(dev)}
+    del trainer, batches, batch, own, avg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d): ray-sharded finetuning steps on phase 9's scene
+    DB.DATA_ROOT = spec["ft_data"]
+    t0 = time.perf_counter()
+    trainer = FtTrainer(dict(spec["ft_cfg"]), mesh=mesh)
+    trainer._start()
+    sync()
+    build_s = time.perf_counter() - t0
+    batches = trainer._batches(0)
+    batch = next(batches)
+    state = trainer.generator.get_state()
+    if mesh.is_main:
+        ref_idx, que_b, que_i = batch
+        one = own_grads(trainer, build_losses(trainer.cfg)(
+            trainer.ft(ref_idx, que_b, que_i, trainer.generator), {}),
+            trainer.ft)
+        trainer.generator.set_state(state)
+    torch.cuda.reset_peak_memory_stats(dev)
+    GA.reset_launches()
+    trainer.train_step(batch)
+    first = counts()
+    if mesh.is_main:
+        rep["ft_grads"] = mg_grad_error(
+            {n: p.grad for n, p in trainer.ft.named_parameters()}, one)
+        del one
+    times, per_step = run_steps(trainer, trainer.ft, batches,
+                                MG_FT_STEPS - 1)
+    rep["ft"] = {"times": times, "first": first, "per_step": per_step,
+                 "launches": counts(), "build_s": build_s,
+                 "rays": trainer.cfg["train_ray_num"],
+                 "same": mg_same_on_every_rank(
+                     mesh, list(trainer.ft.parameters())),
+                 "peak": torch.cuda.max_memory_allocated(dev)}
+    del trainer, batches, batch
+    torch.save(rep, Path(work) / f"report{mesh.rank}.pt")
+
+
+def mg_torchrun(args):
+    """``torchrun --standalone --nproc_per_node MG_RANKS -m <args>``, as
+    ``python -m torch.distributed.run`` (torchrun's module)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(MG_RANKS), "-m", *args]
+
+
+def mg_processes(cmds, cwd, env, timeout=420):
+    """The commands (what -> argv) run side by side in cwd, each one's
+    output to ``cwd/<what>.log``; the seconds until each ended. Raises
+    with the end of a failing one's output; kills every one still
+    running at the timeout or after a failure."""
+    t0 = time.perf_counter()
+    logs = {what: open(Path(cwd) / f"{what.replace(' ', '_')}.log", "w")
+            for what in cmds}
+    procs = {what: subprocess.Popen(cmd, cwd=cwd, env=env, text=True,
+                                    stdout=logs[what],
+                                    stderr=subprocess.STDOUT)
+             for what, cmd in cmds.items()}
+    seconds = {}
+    try:
+        while len(seconds) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                left = sorted(set(procs) - set(seconds))
+                raise RuntimeError(f"phase 18: {left} still running after "
+                                   f"{timeout} s")
+            for what, proc in procs.items():
+                if what not in seconds and proc.poll() is not None:
+                    seconds[what] = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        logs[what].flush()
+                        out = Path(logs[what].name).read_text()
+                        raise RuntimeError(f"phase 18 {what} failed "
+                                           f"({proc.returncode}):\n"
+                                           f"{out[-5000:]}")
+            time.sleep(0.2)
+    finally:
+        for what, proc in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logs[what].close()
+    return seconds
+
+
+def train_log(path):
+    """A train.txt's loss values by step (one line a logged step, the
+    log's 5 decimals)."""
+    rows = [line.split() for line in Path(path).read_text().splitlines()]
+    return {int(v[2]): {k: float(x) for k, x in zip(v[3::2], v[4::2])
+                        if k.startswith("loss")} for v in rows}
+
+
+def check_cli_losses(logs, steps, what):
+    """Hold the sharded training CLI's logged losses (``logs["two"]``) to
+    the one-process CLI's (``"one"``), with a one-process run at lr 0
+    (``"zero"``) as the control: step 1, taken before any update, within
+    MG_CLI_LOSS_BOUND in every loss; each later step's loss_total within
+    MG_CLI_UPDATE_SHARE of the one-process update's effect on it (one
+    against zero), or MG_CLI_LOSS_BOUND where that is less. The update
+    must move some step's loss_total by 10 bounds, else the check shows
+    nothing. Returns {step: (two - one, one - zero)} of loss_total."""
+    if any(sorted(v) != list(range(1, steps + 1)) for v in logs.values()):
+        raise RuntimeError(f"{what}: logged steps " + ", ".join(
+            f"{k} {sorted(v)}" for k, v in logs.items()))
+    first = {k: v[1] for k, v in logs.items()}
+    if not first["two"].keys() == first["one"].keys() == first["zero"].keys():
+        raise RuntimeError(f"{what}: step 1 logged {first}")
+    apart = max(abs(v[n] - first["one"][n]) for v in first.values()
+                for n in v)
+    if not apart <= MG_CLI_LOSS_BOUND:
+        raise RuntimeError(f"{what}: step 1's losses apart by {apart}")
+    out = {}
+    for st in range(2, steps + 1):
+        t = {k: v[st]["loss_total"] for k, v in logs.items()}
+        out[st] = (t["two"] - t["one"], t["one"] - t["zero"])
+    for st, (d, effect) in out.items():
+        if not abs(d) <= max(MG_CLI_UPDATE_SHARE * abs(effect),
+                             MG_CLI_LOSS_BOUND):
+            raise RuntimeError(f"{what}: step {st}'s loss_total {d} from "
+                               f"the one-process CLI's, whose update moved "
+                               f"it {effect}")
+    if not max(abs(e) for _, e in out.values()) >= 10 * MG_CLI_LOSS_BOUND:
+        raise RuntimeError(f"{what}: the update moved no loss ({out})")
+    return out
+
+
+def mg_cli(work, weights, smi):
+    """(e) Both CLIs under torchrun on phase 14's scene, side by side
+    with two one-process training CLIs: the render CLI's first exact eval
+    view, its JPEGs against phase 14's one-process ones byte for byte; the
+    training CLI finetuning phase 9's config for MG_CLI_STEPS steps on
+    MG_RANKS ranks beside the one-process CLI on the same config and the
+    one-process CLI at lr 0: the same files, and each step's logged
+    losses held by ``check_cli_losses``."""
+    from neuray_tpu_torch.selfcheck import write_cfg
+    repo = Path(__file__).resolve().parent
+    cli = work / "mg_cli"
+    shutil.rmtree(cli, ignore_errors=True)
+    cli.mkdir(parents=True)
+    write_gen_checkpoint(weights, cli / "data" / "model", GEN_PROFILE)
+    env = {**os.environ, "NEURAY_DATA_ROOT": str(work / "ft_data"),
+           "PYTHONPATH": str(repo)}
+    label = mg_cards_label()
+    runs = {}
+    for kind in ("two", "one", "zero"):
+        root = cli / kind
+        write_gen_checkpoint(weights, root, GEN_PROFILE)
+        lr = FT_PROFILE["lr_cfg"]
+        runs[kind] = write_cfg(cli / f"{kind}.yaml", {
+            **FT_PROFILE, **FT_CUTS, "output_root": str(root),
+            "total_step": MG_CLI_STEPS, "save_interval": MG_CLI_STEPS,
+            "train_log_step": 1, "use_validation": False,
+            "lr_cfg": dict(lr, lr_init=0.0) if kind == "zero" else lr})
+    one_process = [sys.executable, "-m", "neuray_tpu_torch.run_training",
+                   "--cfg"]
+    s = mg_processes({
+        "render CLI": mg_torchrun([
+            "neuray_tpu_torch.render", "--database_name", CLI_DATABASE,
+            "--cfg", str(repo / "configs" / "gen" / "neuray_gen_depth.yaml"),
+            "--re", "1"]),
+        "training CLI": mg_torchrun(["neuray_tpu_torch.run_training",
+                                     "--cfg", runs["two"]]),
+        "one-process training CLI": one_process + [runs["one"]],
+        "one-process training CLI at lr 0": one_process + [runs["zero"]]},
+        cli, env)
+    rel = Path("data/render") / CLI_DATABASE.replace("/", "_")
+    names = [f"neuray_gen_depth-eval/0-{k}.jpg" for k in ("nr", "nr_fine")]
+    for name in names + ["gt/0.jpg"]:
+        if (cli / rel / name).read_bytes() != \
+                (work / "cli" / rel / name).read_bytes():
+            raise RuntimeError(f"phase 18 render CLI: {name} differs from "
+                               "phase 14's")
+    log(f"phase 18 render CLI under torchrun ({label}; side by side with "
+        f"the training CLIs): the first exact eval view {H}x{W} in "
+        f"{s['render CLI']:.1f} s (2 process starts in); its JPEGs equal "
+        f"phase 14's byte for byte ({smi})")
+    s_two, s_one = s["training CLI"], s["one-process training CLI"]
+    dirs = {k: cli / k / FT_PROFILE["name"] for k in runs}
+    files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
+    if files["two"] != files["one"]:
+        raise RuntimeError(f"phase 18 training CLI wrote {files['two']}, "
+                           f"the one-process CLI {files['one']}")
+    ckpt = {k: torch.load(d / "ckpt.pt", map_location="cpu",
+                          weights_only=True) for k, d in dirs.items()}
+    if {c["step"] for c in ckpt.values()} != {MG_CLI_STEPS}:
+        raise RuntimeError("phase 18 training CLI: steps " + ", ".join(
+            f"{k} {c['step']}" for k, c in ckpt.items()))
+    a, b = ckpt["two"]["params"], ckpt["one"]["params"]
+    if a.keys() != b.keys() or any(a[k].shape != b[k].shape for k in a):
+        raise RuntimeError("phase 18 training CLI: the checkpoints differ "
+                           "in their parameters")
+    logs = {k: train_log(d / "train.txt") for k, d in dirs.items()}
+    out = check_cli_losses(logs, MG_CLI_STEPS, "phase 18 training CLI")
+    log(f"phase 18 training CLI under torchrun ({label}): {MG_CLI_STEPS} "
+        f"finetuning steps of {FT_PROFILE['name']} ray-sharded in {s_two:.1f}"
+        f" s, the one-process CLI in {s_one:.1f} s (side by side on the "
+        f"card with the render CLI and the one-process CLI at lr 0, each "
+        f"with its process starts, FtTrainer build and ray_feats init); "
+        f"files {files['two']} alike; step 1's losses equal to train.txt's "
+        f"5 decimals (bound {MG_CLI_LOSS_BOUND:g}); loss_total sharded / "
+        f"one process / at lr 0: " + ", ".join(
+            f"step {st} {logs['two'][st]['loss_total']:.5f} / "
+            f"{logs['one'][st]['loss_total']:.5f} / "
+            f"{logs['zero'][st]['loss_total']:.5f} (apart {d:+.5f}, the "
+            f"update's effect {e:+.5f})" for st, (d, e) in out.items())
+        + f"; bound {MG_CLI_UPDATE_SHARE:g} of the effect ({smi})")
+
+
+def multi_gpu_phase(GA, dev, work, weights, exact_out, bench_frame, smi,
+                    one):
+    """Phase 18: multi-GPU. MG_RANKS spawned ranks (``run_ranks``; the
+    kernel built here before they start, a free port on 127.0.0.1, each
+    rank's launches its own) run ``mg_rank``: (a) phase 4's exact frame
+    with ``make_sharded_render_fn``, within MG_FRAME_BOUND of phase 4's
+    ``exact_out`` (and whether byte-equal); (b) the bench default with
+    ``mesh``, phase 7's keep set (``bench_frame``); (c) data-parallel steps
+    of phase 12's config on its data (MG_WORKERS workers a rank), the first
+    step's averaged gradients against the mean of each rank's one-process
+    gradient; (d) ray-sharded steps of phase 9's config on its scene, the
+    first step's against the one-process step on rank 0; parameters the
+    same on every rank. Then (e) both CLIs under torchrun (``mg_cli``).
+    Times are labelled with how the ranks sit on the cards, and each
+    printed beside the one-process time of its phase in this run (``one``:
+    phase 4's ray loop s, phase 7's encode + render s, phases 12's and
+    9's median step s): the scaling. Returns the ranks' gather launches
+    (forward by instantiation, and backward)."""
+    from neuray_tpu_torch.parallel.spawn import run_ranks
+    if MG_DEVICE is None:
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.split()
+        if (torch.cuda.device_count() < MG_RANKS
+                and "Exclusive_Process" in mode):
+            raise RuntimeError(f"phase 18: the card's compute mode is "
+                               f"{mode[0]}: {MG_RANKS} ranks cannot share it")
+    label = mg_cards_label()
+    out = work / "mg"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    gen_cfg = out / Path(GEN_CLI_CFG).name
+    cut_config(Path(__file__).resolve().parent / GEN_CLI_CFG, gen_cfg, {
+        "total_step": MG_GEN_STEPS, "worker_num": MG_WORKERS,
+        "output_root": str(out)})
+    write_gen_checkpoint(weights, out, GEN_PROFILE)
+    spec = {"weights": str(Path(__file__).resolve().parent / "tools" /
+                           "bench_weights.npz"),
+            "gen_cfg": str(gen_cfg), "ft_data": str(work / "ft_data"),
+            "ft_cfg": {**FT_PROFILE, **FT_CUTS, "output_root": str(out),
+                       "total_step": MG_FT_STEPS}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(mg_rank, MG_RANKS, (str(out), spec), timeout=MG_TIMEOUT,
+              device=MG_DEVICE)
+    wall = time.perf_counter() - t0
+    reps = [torch.load(out / f"report{r}.pt", weights_only=False)
+            for r in range(MG_RANKS)]
+    log(f"phase 18: {MG_RANKS} ranks ({label}; " + ", ".join(
+        f"rank {r['rank']} on {r['device']}" for r in reps) +
+        f", backend {reps[0]['backend']}) ran parts a-d in {wall:.1f} s "
+        f"({smi})")
+
+    # (a) the exact frame
+    n_rays = H * W
+    sharded = torch.load(out / "exact.pt")
+    if sharded.keys() != exact_out.keys():
+        raise RuntimeError(f"phase 18 exact frame keys {sorted(sharded)}")
+    err = max((sharded[k].float() - exact_out[k].cpu().float()).abs().max()
+              .item() for k in sharded)
+    byte_equal = all(torch.equal(sharded[k], exact_out[k].cpu())
+                     for k in sharded)
+    per = -(-n_rays // (MG_RANKS * CHUNK))
+    for r in reps:
+        want = {"f32": 2 * 2 * per + 1, "bf16": 0, "u8": 0, "backward": 0}
+        if r["exact"]["launches"] != want:
+            raise RuntimeError(f"phase 18 exact frame rank {r['rank']}: "
+                               f"launches {r['exact']['launches']}, "
+                               f"expected {want}")
+    s = max(r["exact"]["s"] for r in reps)
+    log(f"phase 18a exact frame ({label}): {n_rays} rays in {s:.3f} s = "
+        f"{n_rays / s:.1f} rays/s (encode on every rank in), "
+        f"{one['frame'] / s:.2f}x phase 4's ray loop in this run "
+        f"({n_rays / one['frame']:.1f} rays/s); against phase "
+        f"4's frame max |diff| {err:.3g} (bound {MG_FRAME_BOUND:g}), "
+        f"byte-equal {byte_equal}; gather launches a rank " + ", ".join(
+            f"{r['exact']['launches']['f32']}" for r in reps) + "; peak "
+        "memory a rank " + ", ".join(
+            f"{r['exact']['peak'] / 2**30:.2f} GiB" for r in reps))
+    if not err <= MG_FRAME_BOUND:
+        raise RuntimeError(f"phase 18 exact frame differs by {err}")
+
+    # (b) the bench default
+    bench_out = bench_frame["out"]
+    b = torch.load(out / "bench.pt", weights_only=False)
+    flips = int((b["keep_mask"] != bench_out["keep_mask"]).sum())
+    if flips:
+        raise RuntimeError(f"phase 18 bench frame: keep set differs from "
+                           f"phase 7's in {flips} rays")
+    berr = float(np.abs(b["pixel_colors_nr_fine"]
+                        - bench_out["pixel_colors_nr_fine"]).max())
+    s = max(r["bench"]["s"] for r in reps)
+    log(f"phase 18b bench default ({label}): encode + probe + render "
+        f"{s:.3f} s = {n_rays / s:.1f} rays/s, {one['bench'] / s:.2f}x "
+        f"phase 7's in this run ({one['bench']:.3f} s), phase 7's keep set "
+        f"({reps[0]['bench']['kept']} rays), colours against phase 7's max "
+        f"|diff| {berr:.3g}; gather launches a rank " + ", ".join(
+            str({k: v for k, v in r["bench"]["launches"].items() if v})
+            for r in reps))
+    if not all(r["bench"]["launches"]["u8"] > 0 for r in reps):
+        raise RuntimeError("phase 18 bench frame: a rank launched no u8 "
+                           "gather")
+
+    # (c), (d) the steps
+    for part, key, what in (("c", "gen", "data-parallel gen steps"),
+                            ("d", "ft", "ray-sharded finetuning steps")):
+        g = reps[0][f"{key}_grads"]
+        same = all(r[key]["same"] for r in reps)
+        times = np.asarray([max(r[key]["times"][i] for r in reps)
+                            for i in range(len(reps[0][key]["times"]))])
+        fwd = [r[key]["first"] for r in reps]
+        log(f"phase 18{part} {what} ({label}): {len(times) + 1} steps, the "
+            f"timed {len(times)} median {np.median(times):.4f} s = "
+            f"{1 / np.median(times):.2f} steps/s (range "
+            f"{times.min():.4f}-{times.max():.4f} s), "
+            f"{one[key] / np.median(times):.2f}x phase "
+            f"{12 if key == 'gen' else 9}'s steps/s in this run "
+            f"({1 / one[key]:.2f})"
+            + (f", {reps[0]['ft']['rays']} rays a step over the ranks, "
+               f"FtTrainer built with its ray_feats in "
+               f"{reps[0]['ft']['build_s']:.1f} s" if key == "ft" else
+               f", one sample a rank ({reps[0]['gen']['shape']})")
+            + f"; the first step's averaged gradients against the "
+            f"one-process step on the same inputs: worst leaf "
+            f"{g['worst']:.3g} of its norm ({g['leaf']}, {g['leaves']} "
+            f"leaves, bound {MG_GRAD_BOUND:g} + {MG_GRAD_FLOOR:g}); "
+            f"parameters the same on every rank {same}; first step's gather "
+            f"launches a rank {fwd}; peak memory a rank " + ", ".join(
+                f"{r[key]['peak'] / 2**30:.2f} GiB" for r in reps))
+        if g["bad"] or not same:
+            raise RuntimeError(f"phase 18 {what}: leaves outside the bound "
+                               f"{g['bad']}, parameters the same {same}")
+        for r in reps:
+            first = r[key]["first"]
+            if not (first["f32"] > 0 and first["backward"] > 0):
+                raise RuntimeError(f"phase 18 {what} rank {r['rank']}: "
+                                   f"gather launches {first}")
+    mg_cli(work, weights, smi)
+    launches = {"f32": 0, "bf16": 0, "u8": 0, "backward": 0}
+    for r in reps:
+        for part in ("exact", "bench"):
+            for k in launches:
+                launches[k] += r[part]["launches"][k]
+        for key in ("gen", "ft"):
+            for k in launches:
+                launches[k] += r[key]["launches"][k]
+    return launches
+
+
 def load_gather(root):
     """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
     module of its own (it builds its kernel under root/build)."""
@@ -3796,10 +4476,13 @@ def main():
         parent.load_library()
         log(f"parent: {a.parent}'s gather built")
 
+    t0 = time.perf_counter()
     _, kernel_stats = check_kernel(GA, dev)
     backward_stats = check_backward(GA, dev, parent)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # ---- full frame ----
+    t_frame = time.perf_counter()
     rng = np.random.RandomState(0)
     ref_np = make_sphere_scene(rng, RFN, H, W)
     que_np = make_query(rng, H, W, 0, full_image=True)
@@ -3815,9 +4498,18 @@ def main():
     n_chunks = -(-n_rays // CHUNK)
 
     t0 = time.perf_counter()
-    R.render_full(renderer, ref, que)
+    warm = R.render_full(
+        renderer, ref,
+        dict(que, coords=que["coords"][:, :WARMUP_CHUNKS * CHUNK]))
+    # the frame's outputs, allocated once and freed: the timed frame's
+    # concatenations then reuse the allocator's blocks, as they would
+    # after a whole warm-up frame
+    frame_sized = [torch.empty((1, n_rays) + v.shape[2:], dtype=v.dtype,
+                               device=dev) for v in warm.values()]
+    del warm, frame_sized
     torch.cuda.synchronize()
-    log(f"warm-up frame: {time.perf_counter() - t0:.2f} s")
+    log(f"warm-up ({WARMUP_CHUNKS} chunks and the frame's output "
+        f"allocations): {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
     GA.reset_launches()
@@ -3856,29 +4548,50 @@ def main():
 
     in_situ(R, renderer, ref_c, que,
             np.arange(N_CHECK) + (n_rays - N_CHECK) // 2)
+    log(f"phases 4-5: {time.perf_counter() - t_frame:.1f} s")
 
+    t0 = time.perf_counter()
     counted.append(fast_profile(R, GA, renderer, ref, que, gt, img))
-    counted += bench_profile(R, GA, renderer, ref, que, gt)
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bench_launches, bench_frame = bench_profile(R, GA, renderer, ref, que,
+                                                gt)
+    counted += bench_launches
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     train_launches, backward_launches = train_phase(
         GA, dev, Path(__file__).resolve().parent, weights, parent)
     counted.append(train_launches)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    t0 = time.perf_counter()
     ft_launches, ft_backward, ft_fine, ft_step_s = ft_phase(
         GA, R, dev, work, weights, parent)
     counted.append(ft_launches)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
     weights_cv = load_params_npz(str(
         Path(__file__).resolve().parent / "tools" / "bench_weights_cv.npz"))
+    t0 = time.perf_counter()
     cv_launches, cv_rows = cv_phase(GA, R, dev, weights_cv)
     counted += cv_launches
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     cv_ft_launches, cv_ft_backward, cv_ft_fine, _ = ft_phase(
         GA, R, dev, work, weights_cv, parent, FT_CV_PROFILE, GEN_CV_PROFILE,
         0, False, "finetuning from the cost volume", "phase 11")
     counted.append(cv_ft_launches)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     gen_launches, gen_backward, gen_rows, gen_bwd_rows, gen_step_s = \
         gen_cli_phase(GA, R, dev, weights, parent)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     cv_cli_launches, cv_cli_backward = cv_cli_phase(GA, R, dev)
     counted += [gen_launches, cv_cli_launches]
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     counted.append(cli_phase(GA, R, dev, work, weights))
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     fast_launches, fast_backward, fast_rows, fast_bwd_rows = fast_cli_phase(
         GA, R, dev, gen_step_s, parent)
@@ -3894,7 +4607,15 @@ def main():
     dr_launches = dr_phase(GA, R, dev, work, weights, ref, que, gt, out,
                            frame_rays_s)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
-    counted += [fast_launches, db_launches, ref_launches, dr_launches]
+    t0 = time.perf_counter()
+    mg_launches = multi_gpu_phase(
+        GA, dev, work, weights, out, bench_frame, smi, {
+            "frame": n_rays / frame_rays_s,
+            "bench": bench_frame["encode"] + bench_frame["render"],
+            "gen": gen_step_s, "ft": ft_step_s})
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    counted += [fast_launches, db_launches, ref_launches, dr_launches,
+                mg_launches]
     kernel_stats["f32"]["max_abs_err"] = max(
         [kernel_stats["f32"]["max_abs_err"]]
         + [r["max_abs_err"] for r in cv_rows + gen_rows + fast_rows
@@ -3915,7 +4636,7 @@ def main():
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
         "launches": (backward_launches + ft_backward + cv_ft_backward
                      + gen_backward + cv_cli_backward + fast_backward
-                     + db_backward),
+                     + db_backward + mg_launches["backward"]),
         **backward_stats,
         "real_ft_fine": {"shape": ft_fine["shape"],
                          "points": ft_fine["points"],

@@ -75,7 +75,9 @@ def _upsample(img: np.ndarray, k: int) -> np.ndarray:
 
 def _pool_map(fn, items, workers: int = 8) -> list:
     """fn over items on a thread pool (the renders' large numpy operations
-    and the codecs release the interpreter lock), results in order."""
+    and the codecs release the interpreter lock), results in order. Each
+    writer draws its poses before it renders, so the scene is the same as
+    a serial one."""
     with ThreadPoolExecutor(workers) as pool:
         return list(pool.map(fn, items))
 
@@ -176,10 +178,11 @@ def write_real_iconic(root, name="sphere", n=10, h=3024, w=4032, factor=4,
     K = _K(f / factor, ws, hs)
     near, far = 2.5, 5.5
     scale = 1.0 / (np.float32(near) * 0.75)
+    poses = _cluster(rng, n, 4.0)
     rows, jobs, depths = [], [], []
-    for i, pose in enumerate(_cluster(rng, n, 4.0)):
+    views = _pool_map(lambda pose: _render(pose, K, hs, ws), poses)
+    for i, (pose, (rgb, depth, _)) in enumerate(zip(poses, views)):
         rows.append(_llff_row(pose, h, w, f, near, far))
-        rgb, depth, _ = _render(pose, K, hs, ws)
         jobs.append((base / "images" / f"img_{i:03}.jpg",
                      _upsample(rgb, factor)))
         depths.append((f"{i}.jpg.geometric.bin", depth * scale))
@@ -203,16 +206,22 @@ def write_real_estate(root, name="sphere", n=10, h=720, w=1280,
     (base / "cameras").mkdir(parents=True, exist_ok=True)
     th, tw = target
     fx, fy, cx, cy = 1.2 * w / w, 1.2 * w / h, 0.5, 0.5
-    lines, jobs, depths = ["https://example.com/clip\n"], [], []
-    for i, pose in enumerate(_cluster(rng, n, 4.0)):
-        ts = 1000 * (i + 1)
-        lines.append(" ".join(str(v) for v in [ts, fx, fy, cx, cy, 0, 0,
-                                               *pose.reshape(-1)]) + "\n")
+    poses = _cluster(rng, n, 4.0)
+
+    def render(pose):
         rgb, _, _ = _render(pose, [[fx * w, 0, cx * w], [0, fy * h, cy * h],
                                    [0, 0, 1]], h, w)
         _, depth, _ = _render(pose, [[fx * tw, 0, cx * tw],
                                      [0, fy * th, cy * th], [0, 0, 1]],
                               th, tw)
+        return rgb, depth
+
+    lines, jobs, depths = ["https://example.com/clip\n"], [], []
+    views = _pool_map(render, poses)
+    for i, (pose, (rgb, depth)) in enumerate(zip(poses, views)):
+        ts = 1000 * (i + 1)
+        lines.append(" ".join(str(v) for v in [ts, fx, fy, cx, cy, 0, 0,
+                                               *pose.reshape(-1)]) + "\n")
         jobs.append((base / "frames" / name / f"{ts}.png", rgb))
         depths.append((f"{ts}.jpg.geometric.bin", depth))
     (base / "cameras" / f"{name}.txt").write_text("".join(lines))
@@ -233,8 +242,10 @@ def write_space(root, name="scene_000", n=10, h=480, w=800, seed=0) -> str:
     (base / "cam").mkdir(parents=True, exist_ok=True)
     f = 1.2 * w
     K = _K(f, w, h)
+    poses = _cluster(rng, n, 4.0)
     rig, jobs, depths = [], [], []
-    for i, pose in enumerate(_cluster(rng, n, 4.0)):
+    views = _pool_map(lambda pose: _render(pose, K, h, w), poses)
+    for i, (pose, (rgb, depth, _)) in enumerate(zip(poses, views)):
         R, t = pose[:, :3], pose[:, 3]
         rig.append({"relative_path": f"cam/image_{i:03}.jpg",
                     "height": h, "width": w, "focal_length": f,
@@ -243,7 +254,6 @@ def write_space(root, name="scene_000", n=10, h=480, w=800, seed=0) -> str:
                     "position": (-R.T @ t).tolist(),
                     "orientation": Rotation.from_matrix(R).as_rotvec()
                     .tolist()})
-        rgb, depth, _ = _render(pose, K, h, w)
         jobs.append((base / "cam" / f"image_{i:03}.jpg", rgb))
         depths.append((f"0-{i}.jpg.geometric.bin", depth))
     (base / "models.json").write_text(json.dumps([rig]))
@@ -282,8 +292,8 @@ def write_llff_colmap(root, name="fern", n=20, h=3024, w=4032, seed=0
     poses = _cluster(rng, n, 4.0)
     names = [f"IMG_{4026 + i}.JPG" for i in range(n)]
     jobs, depths = [], []
-    for i, pose in enumerate(poses):
-        rgb, depth, _ = _render(pose, Ks, hs, ws)
+    views = _pool_map(lambda pose: _render(pose, Ks, hs, ws), poses)
+    for i, (rgb, depth, _) in enumerate(views):
         jobs.append((base / "images" / names[i], _upsample(rgb, k)))
         depths.append((f"{i + 1}.jpg.geometric.bin", depth))
     _write_colmap_model(base / "sparse", poses, K, w, h, names)
@@ -304,12 +314,18 @@ def write_dtu_test(root, name="scan24", n=6, h=1200, w=1600, seed=0) -> str:
         (base / sub).mkdir(parents=True, exist_ok=True)
     K = _K(1.2 * w, w, h)
     Kd = K * [[0.5], [0.5], [1]]
-    cams, jobs = {}, []
-    for i, pose in enumerate(_cluster(rng, n, 2.5)):
-        cams[f"world_mat_{i}"] = np.concatenate(
-            [K @ pose, [[0.0, 0, 0, 1]]], 0)
+    poses = _cluster(rng, n, 2.5)
+
+    def render(pose):
         rgb, _, hit = _render(pose, K, h, w)
         _, depth, _ = _render(pose, Kd, h // 2, w // 2)
+        return rgb, hit, depth
+
+    cams, jobs = {}, []
+    views = _pool_map(render, poses)
+    for i, (pose, (rgb, hit, depth)) in enumerate(zip(poses, views)):
+        cams[f"world_mat_{i}"] = np.concatenate(
+            [K @ pose, [[0.0, 0, 0, 1]]], 0)
         jobs += [(base / "image" / f"{i:06}.png", rgb),
                  (base / "mask" / f"{i:03}.png",
                   np.repeat(hit[..., None], 3, 2).astype(np.uint8) * 255)]
@@ -332,8 +348,8 @@ def write_example(root, name="desk", n=6, h=48, w=64, seed=0) -> str:
     poses = _cluster(rng, n, 4.0)
     names = [f"frame_{i}.jpg" for i in range(n)]
     jobs, depths = [], []
-    for pose, fn in zip(poses, names):
-        rgb, depth, _ = _render(pose, K, h, w)
+    views = _pool_map(lambda pose: _render(pose, K, h, w), poses)
+    for (rgb, depth, _), fn in zip(views, names):
         jobs.append((base / "images" / fn, rgb))
         depths.append((f"{fn}.geometric.bin", depth))
     _write_colmap_model(base / "sparse" / "0", poses, K, w, h, names)

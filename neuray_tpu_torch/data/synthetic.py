@@ -16,6 +16,7 @@ float32.
 from __future__ import annotations
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -143,6 +144,7 @@ def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
     splits = (("train", [f"r_{i}" for i in range(n_train)]),
               ("val", [i[len("val-"):] for i in nerf_syn_val_ids]),
               ("test", [f"r_{i}" for i in range(n_test)]))
+    views = []
     for split, names in splits:
         (base / split).mkdir(exist_ok=True)
         frames = []
@@ -157,18 +159,26 @@ def write_nerf_synthetic_sphere(root: str, n_train: int = 100,
             # the pose as the database parses it back
             gl = np.asarray(c2w, np.float32)
             rot = gl[:3, :3].T
-            pose = np.concatenate([flip @ rot, flip @ (-rot @ gl[:3, 3:])], 1)
-            rgb, zdepth, hit = render_spheres_view(pose, K, size, size)
-            rgba = np.concatenate(
-                [np.round(rgb * 255), hit[..., None] * 255.0], -1)
-            write_png(str(base / split / f"{name}.png"),
-                      rgba.astype(np.uint8))
-            if split == "train":
-                write_array(str(base / "colmap_depth" /
-                                f"train-{name}.png.geometric.bin"), zdepth)
+            views.append((split, name, np.concatenate(
+                [flip @ rot, flip @ (-rot @ gl[:3, 3:])], 1)))
         with open(base / f"transforms_{split}.json", "w") as f:
             json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
                        "frames": frames}, f)
+
+    def write(view):
+        split, name, pose = view
+        rgb, zdepth, hit = render_spheres_view(pose, K, size, size)
+        rgba = np.concatenate([np.round(rgb * 255), hit[..., None] * 255.0],
+                              -1)
+        write_png(str(base / split / f"{name}.png"), rgba.astype(np.uint8))
+        if split == "train":
+            write_array(str(base / "colmap_depth" /
+                            f"train-{name}.png.geometric.bin"), zdepth)
+
+    # the poses are drawn above in split order; the renders (numpy's large
+    # operations and the PNG codec release the interpreter lock) in threads
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, views))
 
 
 def make_query(rng: np.random.RandomState, h: int, w: int, rn: int,

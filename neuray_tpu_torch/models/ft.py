@@ -15,8 +15,21 @@ query view (a ninth image-encoder pass) for the consistency loss. The
 scene's images, poses, Ks and depth ranges live on the device.
 
 ``render_video_ft`` is the render CLI's ``--render_type ft``: the
-finetuned scene's frames along a trajectory. The ray-sharded step for
-multi-GPU waits for ROADMAP item 11.
+finetuned scene's frames along a trajectory.
+
+On a mesh of more than one rank (``parallel/sharding.py``) the training
+forward is ray-sharded, the counterpart of the JAX package's
+``FtRenderer.make_sharded_train_step``: every rank encodes the scene,
+the ray batch is padded to a multiple of the ranks with copies of the
+last ray (weighted 0 in ``ray_weight``), and each rank renders its
+contiguous slice; the losses sum their ray reductions over the ranks
+(``build_losses(cfg, group=mesh)``) and the trainer averages the
+gradients (``average_gradients``), which gives the one-process step's
+full-batch gradient. The fine sampler's draws are made for the whole
+batch from the trainer's CPU generator (the pad rays copy the last ray's)
+and sliced, so a sharded step equals the one-process step on the same
+batch, draws included; the JAX package folds the device index into its
+key instead, a different stream from the same distribution.
 """
 from __future__ import annotations
 
@@ -33,8 +46,8 @@ from neuray_tpu_torch.data.imgs_info import build_imgs_info, get_coords_mask
 from neuray_tpu_torch.data.view_select import (
     compute_nearest_camera_indices, select_working_views)
 from neuray_tpu_torch.models import renderer as R
-from neuray_tpu_torch.models.renderer import (
-    NeurayRenderer, RenderConfig, render_rays)
+from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
+from neuray_tpu_torch.parallel import sharding as P
 from neuray_tpu_torch.utils.config import load_cfg
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
@@ -228,13 +241,15 @@ class FtRenderer(nn.Module):
     # ---------------- the training forward ----------------
 
     def forward(self, ref_idx, que: Tensors, que_i: int,
-                generator: torch.Generator | None = None) -> Tensors:
+                generator: torch.Generator | None = None,
+                mesh: P.Mesh | None = None) -> Tensors:
         """The training forward of one step, with autograd: the ref views
         ref_idx's ray_feats through the encoders, the gather maps, and
         ``render_chunk(is_train=True)`` of que (fine draws from
         ``generator``); with ``use_self_hit_prob`` the query view's own
         ray_feats (view que_i) encoded with its image for the
-        consistency path."""
+        consistency path. On a ``mesh`` of more than one rank, this
+        rank's slice of the rays (``_render_shard``)."""
         dev = self.ray_feats.device
         idx = torch.from_numpy(np.asarray(ref_idx, np.int64)).to(dev)
         ref = self._slice_ref(idx)
@@ -248,7 +263,32 @@ class FtRenderer(nn.Module):
                 0, torch.tensor([int(que_i)], device=dev))
             _, que_c["ray_feats"] = self.net.encode_scene(
                 {"imgs": que["imgs"]}, que_raw)
-        return self.net.render_chunk(ref_c, que_c, True, generator)
+        if mesh is None or mesh.size == 1:
+            return self.net.render_chunk(ref_c, que_c, True, generator)
+        return self._render_shard(ref_c, que_c, generator, mesh)
+
+    def _render_shard(self, ref_c: Tensors, que: Tensors,
+                      generator: torch.Generator | None,
+                      mesh: P.Mesh) -> Tensors:
+        """This rank's part of a ray-sharded training render: the rays
+        padded to a multiple of the ranks with copies of the last one,
+        the contiguous slice of rank r (``parallel.sharding.rank_part``),
+        and its ``ray_weight`` (0 on the padding). The fine draws are made for the unpadded batch, as the
+        one-process step makes them, and padded and sliced alike."""
+        coords = que["coords"]
+        qn, rn, _ = coords.shape
+        u = None
+        if self.render_cfg.use_hierarchical_sampling:
+            u = P.rank_part(self.net.draw_fine_u(
+                (qn, rn, self.render_cfg.fine_depth_sample_num),
+                coords.device, generator), mesh)
+        out = self.net.render_chunk(
+            ref_c, dict(que, coords=P.rank_part(coords, mesh)), True,
+            generator, u)
+        lo, per = P.rank_span(rn, mesh)
+        out["ray_weight"] = (torch.arange(lo, lo + per, device=coords.device)
+                             < rn).float().expand(qn, per)
+        return out
 
     # ---------------- validation ----------------
 
@@ -290,19 +330,23 @@ def make_ft_encode_fn(ft: FtRenderer):
 
 def make_ft_render_fn(ft: FtRenderer,
                       keep_keys: Iterable[str] = ("pixel_colors_nr",
-                                                  "pixel_colors_nr_fine")):
+                                                  "pixel_colors_nr_fine"),
+                      mesh: P.Mesh | None = None):
     """Full-image render for FT: (ref with ``ray_feats_raw``, que) -> the
-    kept outputs [qn, rn, ...] of ``render_rays`` over the encoded ref."""
+    kept outputs [qn, rn, ...] of ``render_rays`` over the encoded ref
+    (on a mesh, ray-sharded: ``make_sharded_render_fn``)."""
     encode = make_ft_encode_fn(ft)
+    rays = P.make_sharded_render_fn(ft.net, mesh, keep_keys,
+                                    pre_encoded=True)
 
     def render(ref: Tensors, que: Tensors) -> Tensors:
-        return render_rays(ft.net, encode(ref), que, keep_keys)
+        return rays(encode(ref), que)
 
     return render
 
 
 def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
-                    render_depth, ray_num, rb, re, device=None):
+                    render_depth, ray_num, rb, re, device=None, mesh=None):
     """The render CLI's ``--render_type ft``: frames rb..re of the
     trajectory pose_type (``get_render_poses``) of the finetuned model of
     the config cfg_fn, read from its checkpoint (``load_gen_state`` under
@@ -317,15 +361,19 @@ def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
     ``{qi}-nr.jpg`` and ``{qi}-nr_fine.jpg`` go to
     ``data/render/<db>/<name>-<pose_type>``; a frame whose
     ``nr_fine.jpg`` exists is skipped. render_depth is not used: the FT
-    render writes colours only, as the JAX package's does."""
+    render writes colours only, as the JAX package's does. On a ``mesh``
+    of more than one rank (the CLI under ``torchrun``) every rank encodes
+    and the ray phases shard; rank 0 alone writes."""
     from pathlib import Path
 
     from neuray_tpu_torch.data.render_poses import get_render_poses
     from neuray_tpu_torch.render import save_renderings
 
+    if mesh is None:
+        mesh = P.make_mesh(resolve_device(device))
     cfg = load_cfg(cfg_fn)
     cfg["ray_batch_num"] = ray_num
-    ft = FtRenderer(cfg, device)
+    ft = FtRenderer(cfg, mesh.device)
     params = load_gen_state(ft.cfg["output_root"], cfg["name"])
     ft.set_ray_feats(params["ray_feats"])
     ft.load_state_dict(params)
@@ -337,7 +385,8 @@ def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
     encode = make_ft_encode_fn(ft)
     output_dir = (f'data/render/{database_name.replace("/", "_")}/'
                   f'{cfg["name"]}-{pose_type}')
-    Path(output_dir).mkdir(exist_ok=True, parents=True)
+    if mesh.is_main:
+        Path(output_dir).mkdir(exist_ok=True, parents=True)
     k0 = database.get_img_ids()[0]
     h, w = database.get_image(k0).shape[:2]
     K = database.get_K(k0)
@@ -346,9 +395,12 @@ def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
     coords = np.stack([xs, ys], -1).reshape(1, -1, 2).astype(np.float32)
 
     re = len(que_poses) if re == -1 else min(re, len(que_poses))
-    for qi in range(rb, re):
-        if os.path.exists(f"{output_dir}/{qi}-nr_fine.jpg"):
-            continue
+    # rank 0's list of the frames to render (a frame already written is
+    # skipped), the same on every rank
+    todo = mesh.broadcast_object(
+        [qi for qi in range(rb, re)
+         if not os.path.exists(f"{output_dir}/{qi}-nr_fine.jpg")])
+    for qi in todo:
         ref_idx = select_working_views(
             np.asarray(ft.ref_info["poses"]), que_poses[qi:qi + 1],
             ft.cfg["neighbor_view_num"], True)[0]
@@ -361,19 +413,22 @@ def render_video_ft(database_name, cfg_fn, pose_type, pose_fn,
             "depth_range": dr[None]}.items()}
         ref_c = encode(ref)
         if use_skip:
-            out = _ft_skip_frame(ft, cfg, ref_c, que, (h, w))
+            out = _ft_skip_frame(ft, cfg, ref_c, que, (h, w), mesh)
         else:
-            out = render_rays(ft.net, ref_c, que,
-                              ("pixel_colors_nr", "pixel_colors_nr_fine"))
-        save_renderings(output_dir, qi, out, h, w)
-        print(f"rendered {qi + 1}/{re}", flush=True)
+            out = P.make_sharded_render_fn(
+                ft.net, mesh, ("pixel_colors_nr", "pixel_colors_nr_fine"),
+                pre_encoded=True)(ref_c, que)
+        if mesh.is_main:
+            save_renderings(output_dir, qi, out, h, w)
+            print(f"rendered {qi + 1}/{re}", flush=True)
 
 
-def _ft_skip_frame(ft: FtRenderer, cfg, ref_c: Tensors, que: Tensors, hw):
+def _ft_skip_frame(ft: FtRenderer, cfg, ref_c: Tensors, que: Tensors, hw,
+                   mesh: P.Mesh | None = None):
     """One FT frame through the frame driver of ``skip_mode``."""
     mode = cfg.get("skip_mode", "two_phase")
     kw = dict(threshold=cfg.get("skip_empty_threshold", 0.05),
-              keep_base=("pixel_colors_nr",))
+              keep_base=("pixel_colors_nr",), mesh=mesh)
     dilate, stride = cfg.get("probe_dilate", 1), cfg.get("probe_stride", 1)
     if mode in ("auto", "auto_focus"):
         return R.render_frame_probe_auto(

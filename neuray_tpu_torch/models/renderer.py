@@ -53,6 +53,12 @@ chunks for jit's static shapes; here they go straight to the chunk loop,
 whose last chunk ``chunk_coords`` pads, and no kept ray's output depends
 on the padding.
 
+With ``mesh`` (a ``parallel.sharding.Mesh`` of more than one rank) every
+ray loop (``render_rays``, ``probe_rays``, ...) and so the drivers' probe,
+audits and render phases shard the ray axis over the ranks
+(``parallel.sharding.shard_rays``); every rank holds every ray's probe
+result, so the compaction on the host is the same on each.
+
 Dicts keep the JAX package's layouts and key names: ref fields
 [rfn, h, w, c] / [rfn, 3, 4] / [rfn, 3, 3] / [rfn, 2], que fields
 coords [qn, rn, 2], poses, Ks, depth_range; outputs [qn, rn, ...].
@@ -82,6 +88,7 @@ from neuray_tpu_torch.ops.compositing import (
     alpha_values2hit_prob, composite_colors)
 from neuray_tpu_torch.ops.interpolate import (
     grid_sample_nhwc, image_to_u8, interpolate_feature_map, quantize_u8)
+from neuray_tpu_torch.parallel import sharding as P
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -463,13 +470,15 @@ class NeurayRenderer(nn.Module):
         return outputs
 
     def render_chunk(self, ref: Tensors, que: Tensors, is_train: bool = False,
-                     generator: torch.Generator | None = None) -> Tensors:
+                     generator: torch.Generator | None = None,
+                     fine_u: torch.Tensor | None = None) -> Tensors:
         """Coarse + (optionally) fine render of one ray chunk. The coarse
         depths are deterministic in both modes (as in the JAX trainer);
         the fine ones are resampled from the detached coarse hit_prob at
         fixed u (eval) or at u drawn from ``generator`` and sorted
         (``is_train``, which also adds the self-hit outputs where
-        configured)."""
+        configured). ``fine_u`` [qn, rn, fine_depth_sample_num]: training
+        draws made by the caller (a rank's slice of a sharded batch's)."""
         c = self.cfg
         qn, rn, _ = que["coords"].shape
         que_depth, _ = S.sample_depth(que["depth_range"], qn, rn,
@@ -477,9 +486,11 @@ class NeurayRenderer(nn.Module):
         outputs = self._render_by_depth(que_depth, que, ref, False, None,
                                         is_train)
         if c.use_hierarchical_sampling:
-            u = (self.draw_fine_u((qn, rn, c.fine_depth_sample_num),
-                                  que_depth.device, generator)
-                 if is_train else None)
+            u = None
+            if is_train:
+                u = (fine_u if fine_u is not None else self.draw_fine_u(
+                    (qn, rn, c.fine_depth_sample_num), que_depth.device,
+                    generator))
             fine_depth = self._fine_depth(
                 que_depth, outputs["hit_prob_nr"].detach(),
                 que["depth_range"], c.fine_depth_sample_num, u)
@@ -693,12 +704,17 @@ def encode_ref(renderer: NeurayRenderer, ref: Tensors,
 
 @torch.inference_mode()
 def _chunk_loop(step: Callable[..., Tensors], que: Tensors, chunk: int,
-                rows: Tuple[torch.Tensor, ...] = ()) -> Tensors:
+                rows: Tuple[torch.Tensor, ...] = (), mesh=None) -> Tensors:
     """Run ``step(que_chunk, *row_chunks) -> {key: [qn, chunk, ...]}`` over
     ``chunk``-ray chunks of que's rays; ``rows`` are per-ray tensors
     [qn, rn, ...] chunked alongside the coords. The last chunk is padded
     with copies of the last ray, whose outputs are cut off. Returns each
-    key concatenated over the chunks, [qn, rn, ...]."""
+    key concatenated over the chunks, [qn, rn, ...]. On a ``mesh`` of
+    more than one rank, over this rank's part of the rays, and the parts
+    gathered (``parallel.sharding.shard_rays``)."""
+    if mesh is not None and mesh.size > 1:
+        return P.shard_rays(lambda q, *r: _chunk_loop(step, q, chunk, r),
+                            que, mesh, chunk, rows)
     rn = que["coords"].shape[1]
     parts: Dict[str, list] = {}
     for coords, *row in zip(*(chunk_coords(x, chunk)[0]
@@ -713,13 +729,15 @@ def _keep(out: Tensors, keep_keys: Iterable[str]) -> Tensors:
 
 
 def render_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
-                keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
+                keep_keys: Iterable[str] = DEFAULT_KEEP,
+                mesh=None) -> Tensors:
     """Chunked ray loop over an encoded ref (from ``encode_ref``):
     renders ``ray_batch_num`` rays at a time and returns the kept
-    outputs, each [qn, rn, ...]."""
+    outputs, each [qn, rn, ...]. ``mesh`` (here and in the other ray
+    loops): shard the rays over its ranks (``_chunk_loop``)."""
     keep = set(keep_keys)
     return _chunk_loop(lambda q: _keep(renderer.render_chunk(ref_c, q), keep),
-                       que, renderer.cfg.ray_batch_num)
+                       que, renderer.cfg.ray_batch_num, mesh=mesh)
 
 
 def render_full(renderer: NeurayRenderer, ref: Tensors, que: Tensors,
@@ -732,8 +750,8 @@ def render_full(renderer: NeurayRenderer, ref: Tensors, que: Tensors,
 
 
 def render_coarse_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
-                       keep_keys=("pixel_colors_nr", "hit_prob_nr")
-                       ) -> Tensors:
+                       keep_keys=("pixel_colors_nr", "hit_prob_nr"),
+                       mesh=None) -> Tensors:
     """The coarse pass alone over que's rays (the exact gate of the
     two-phase render and of the audits)."""
     c = renderer.cfg
@@ -745,46 +763,49 @@ def render_coarse_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
         return _keep(renderer._render_by_depth(depth, q, ref_c, False),
                      keep_keys)
 
-    return _chunk_loop(step, que, c.ray_batch_num)
+    return _chunk_loop(step, que, c.ray_batch_num, mesh=mesh)
 
 
 def render_fine_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
                      hit_prob: torch.Tensor,
-                     keep_keys=("pixel_colors_nr_fine",)) -> Tensors:
+                     keep_keys=("pixel_colors_nr_fine",),
+                     mesh=None) -> Tensors:
     """The fine pass alone over que's rays, from their coarse hit_prob
     [qn, rn, dn]."""
     return _chunk_loop(
         lambda q, hp: _keep(renderer.render_chunk_fine(ref_c, q, hp),
                             keep_keys),
-        que, renderer.cfg.ray_batch_num, (hit_prob,))
+        que, renderer.cfg.ray_batch_num, (hit_prob,), mesh)
 
 
 def probe_rays(renderer: NeurayRenderer, ref_c: Tensors,
-               que: Tensors) -> torch.Tensor:
+               que: Tensors, mesh=None) -> torch.Tensor:
     """The probe's per-ray score [qn, rn] over que's rays."""
     return _chunk_loop(lambda q: {"score": renderer.probe_chunk(ref_c, q)},
-                       que, renderer.cfg.ray_batch_num)["score"]
+                       que, renderer.cfg.ray_batch_num, mesh=mesh)["score"]
 
 
-def focus_probe_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors):
+def focus_probe_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
+                     mesh=None):
     """The focus probe over que's rays: (score, near, far), each [qn, rn]."""
     out = _chunk_loop(
         lambda q: dict(zip(("score", "near", "far"),
                            renderer.probe_chunk_focus(ref_c, q))),
-        que, renderer.cfg.ray_batch_num)
+        que, renderer.cfg.ray_batch_num, mesh=mesh)
     return out["score"], out["near"], out["far"]
 
 
 def render_focus_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
                       near: torch.Tensor, far: torch.Tensor,
-                      keep_keys: Iterable[str] = DEFAULT_KEEP) -> Tensors:
+                      keep_keys: Iterable[str] = DEFAULT_KEEP,
+                      mesh=None) -> Tensors:
     """The focused coarse + fine render over que's rays inside their
     windows near, far [qn, rn]."""
     keep = set(keep_keys)
     return _chunk_loop(
         lambda q, n, f: _keep(renderer.render_chunk_focus(ref_c, q, n, f),
                               keep),
-        que, renderer.cfg.ray_batch_num, (near, far))
+        que, renderer.cfg.ray_batch_num, (near, far), mesh)
 
 
 # ---------------- host helpers ----------------
@@ -844,7 +865,7 @@ def _dilate_keep_mask(keep_mask: np.ndarray, image_hw, dilate: int):
 
 def _strided_focus_probe(renderer: NeurayRenderer, ref_c: Tensors,
                          que: Tensors, threshold: float, image_hw,
-                         stride: int):
+                         stride: int, mesh=None):
     """Run the focus probe on every stride-th pixel in x and y and give
     the full-resolution rays conservative windows: 3x3 min(near) /
     max(far) pooling and a 1-pixel keep dilation at probe resolution,
@@ -856,7 +877,8 @@ def _strided_focus_probe(renderer: NeurayRenderer, ref_c: Tensors,
     sub_idx = (ys[:, None] * w + xs[None, :]).reshape(-1)
     score, near, far = (
         _host(x).astype(np.float32)[0].reshape(hs, ws)
-        for x in focus_probe_rays(renderer, ref_c, _take_rays(que, sub_idx)))
+        for x in focus_probe_rays(renderer, ref_c, _take_rays(que, sub_idx),
+                                  mesh))
 
     def pool3(a, op):
         p = np.pad(a, 1, mode="edge")
@@ -895,7 +917,7 @@ def render_frame_probe_focus(renderer: NeurayRenderer, ref_c: Tensors,
                              que: Tensors, threshold: float = 0.005,
                              keep_base=("pixel_colors_nr",), image_hw=None,
                              dilate: int = 0, probe_out=None,
-                             probe_stride: int = 1):
+                             probe_stride: int = 1, mesh=None):
     """Three-phase render with focused sampling: the focus probe scores
     every ray and narrows its depth window; the rays scoring above
     ``threshold`` render coarse + fine at focus_sample_num /
@@ -909,7 +931,8 @@ def render_frame_probe_focus(renderer: NeurayRenderer, ref_c: Tensors,
     conservative windows (``_strided_focus_probe``). probe_out: a probe
     result to reuse (``render_frame_probe_auto``): (score, near, far)
     tensors from ``focus_probe_rays`` at probe_stride 1, the (keep_mask,
-    near, far) arrays of ``_strided_focus_probe`` above it.
+    near, far) arrays of ``_strided_focus_probe`` above it. mesh: see the
+    module's doc.
 
     Returns, per key k of keep_base, ``k`` and ``k + "_fine"`` [1, rn, ...]
     numpy arrays, plus ``kept_rays`` and ``keep_mask``.
@@ -924,10 +947,11 @@ def render_frame_probe_focus(renderer: NeurayRenderer, ref_c: Tensors,
         keep_mask, near, far = (
             probe_out if probe_out is not None
             else _strided_focus_probe(renderer, ref_c, que, threshold,
-                                      image_hw, probe_stride))
+                                      image_hw, probe_stride, mesh))
     else:
-        score, near, far = (probe_out if probe_out is not None
-                            else focus_probe_rays(renderer, ref_c, que))
+        score, near, far = (
+            probe_out if probe_out is not None
+            else focus_probe_rays(renderer, ref_c, que, mesh))
         keep_mask = _host(score)[0] > threshold
     if dilate > 0 and image_hw is not None:
         keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
@@ -939,42 +963,43 @@ def render_frame_probe_focus(renderer: NeurayRenderer, ref_c: Tensors,
         near_k, far_k = (torch.as_tensor(x, device=idx.device)[:, idx]
                          for x in (near, far))
         kept_out = render_focus_rays(renderer, ref_c, que_k, near_k, far_k,
-                                     keep_keys)
+                                     keep_keys, mesh)
     return _merge_kept_outputs(keep_base, kept_out, keep, keep_mask, qn, rn)
 
 
 def render_frame_probe_skip(renderer: NeurayRenderer, ref_c: Tensors,
                             que: Tensors, threshold: float = 0.005,
                             keep_base=("pixel_colors_nr",), image_hw=None,
-                            dilate: int = 0, probe_out=None):
+                            dilate: int = 0, probe_out=None, mesh=None):
     """Three-phase render: the probe scores every ray, the exact coarse +
     fine render runs only on the rays scoring above ``threshold``, and
     skipped rays are 0 (compositing has no background term). Kept rays
     get the full render's values. image_hw and dilate grow the keep mask
     as in ``render_frame_probe_focus``; probe_out: a ``probe_rays``
-    score to reuse. Returns what ``render_frame_probe_focus`` returns."""
+    score to reuse; mesh: see the module's doc. Returns what
+    ``render_frame_probe_focus`` returns."""
     _check_frame(renderer, que)
     keep_base = tuple(keep_base)
     keep_keys = keep_base + tuple(k + "_fine" for k in keep_base)
     qn, rn, _ = que["coords"].shape
     score = _host(probe_out if probe_out is not None
-                  else probe_rays(renderer, ref_c, que))
+                  else probe_rays(renderer, ref_c, que, mesh))
     keep_mask = score[0] > threshold
     if dilate > 0 and image_hw is not None:
         keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
     keep = np.nonzero(keep_mask)[0]
-    kept_out = (render_rays(renderer, ref_c, _take_rays(que, keep), keep_keys)
-                if keep.size else None)
+    kept_out = (render_rays(renderer, ref_c, _take_rays(que, keep),
+                            keep_keys, mesh) if keep.size else None)
     return _merge_kept_outputs(keep_base, kept_out, keep, keep_mask, qn, rn)
 
 
 def render_frame_skip_empty(renderer: NeurayRenderer, ref_c: Tensors,
                             que: Tensors, threshold: float = 0.02,
-                            keep_base=("pixel_colors_nr",)):
+                            keep_base=("pixel_colors_nr",), mesh=None):
     """Two-phase render: the exact coarse pass on every ray, then the fine
     pass only on rays whose coarse hit mass exceeds ``threshold``; the
     other rays' fine output is their coarse output. Kept rays get the
-    full render's values.
+    full render's values. mesh: see the module's doc.
 
     Returns, per key k of keep_base, ``k`` (coarse) and ``k + "_fine"``
     [1, rn, ...] numpy arrays, plus ``kept_rays`` and ``keep_mask``.
@@ -982,7 +1007,7 @@ def render_frame_skip_empty(renderer: NeurayRenderer, ref_c: Tensors,
     _check_frame(renderer, que)
     keep_base = tuple(keep_base)
     coarse = render_coarse_rays(renderer, ref_c, que,
-                                keep_base + ("hit_prob_nr",))
+                                keep_base + ("hit_prob_nr",), mesh)
     hit_prob = coarse["hit_prob_nr"]
     keep_mask = _host(hit_prob.sum(dim=-1))[0] > threshold
     keep = np.nonzero(keep_mask)[0]
@@ -991,7 +1016,7 @@ def render_frame_skip_empty(renderer: NeurayRenderer, ref_c: Tensors,
         idx = torch.from_numpy(keep).to(hit_prob.device)
         fine = render_fine_rays(renderer, ref_c, _take_rays(que, keep),
                                 hit_prob[:, idx],
-                                tuple(k + "_fine" for k in keep_base))
+                                tuple(k + "_fine" for k in keep_base), mesh)
     out = {"kept_rays": int(keep.size), "keep_mask": keep_mask}
     for k in keep_base:
         base = _host(coarse[k]).astype(np.float32)
@@ -1013,22 +1038,23 @@ def _audit_pick(idx: np.ndarray, sample_rays: int, seed: int) -> np.ndarray:
 def estimate_false_skip(renderer: NeurayRenderer, ref_c: Tensors,
                         que: Tensors, skip_idx: np.ndarray,
                         threshold: float, sample_rays: int = 2048,
-                        seed: int = 0) -> float:
+                        seed: int = 0, mesh=None) -> float:
     """The share of a random sample of the probe's skipped rays (at most
     ``sample_rays``) that the exact gate, the full coarse pass's hit mass
-    > threshold, would have kept."""
+    > threshold, would have kept (on a mesh, the sample's coarse pass
+    sharded: every rank audits the same numbers)."""
     if skip_idx.size == 0:
         return 0.0
     pick = _audit_pick(skip_idx, sample_rays, seed)
     hp = _host(render_coarse_rays(renderer, ref_c, _take_rays(que, pick),
-                                  ("hit_prob_nr",))["hit_prob_nr"])
+                                  ("hit_prob_nr",), mesh)["hit_prob_nr"])
     return float((hp[0].sum(-1) > threshold).mean())
 
 
 def estimate_window_clip(renderer: NeurayRenderer, ref_c: Tensors,
                          que: Tensors, keep_idx: np.ndarray, near, far,
                          threshold: float, sample_rays: int = 1024,
-                         seed: int = 0, ref_psnr: float = 35.0):
+                         seed: int = 0, ref_psnr: float = 35.0, mesh=None):
     """Audit the focus windows near, far [1, rn] against the exact coarse
     pass on a random sample of the kept rays (at most ``sample_rays``).
 
@@ -1039,13 +1065,14 @@ def estimate_window_clip(renderer: NeurayRenderer, ref_c: Tensors,
     the samples inside the window, scaled by the kept fraction of the
     frame, under mse_total = mse_ref + mse_clip with
     mse_ref = 10^(-ref_psnr / 10):
-    clip_db = 10 log10(1 + mse_clip * kept_frac / mse_ref).
+    clip_db = 10 log10(1 + mse_clip * kept_frac / mse_ref). On a mesh the
+    sample's coarse pass is sharded, as in ``estimate_false_skip``.
     """
     if keep_idx.size == 0:
         return {"clip_mass": 0.0, "clip_db": 0.0}
     pick = _audit_pick(keep_idx, sample_rays, seed)
     out = render_coarse_rays(renderer, ref_c, _take_rays(que, pick),
-                             ("hit_prob_nr", "colors_nr"))
+                             ("hit_prob_nr", "colors_nr"), mesh)
     hp = _host(out["hit_prob_nr"])[0]                           # n,dn
     cols = _host(out["colors_nr"]).astype(np.float32)[0]        # n,dn,3
     # the exact coarse depths, recomputed
@@ -1078,7 +1105,7 @@ def render_frame_probe_auto(renderer: NeurayRenderer, ref_c: Tensors,
                             validate_rays: int = 2048, seed: int = 0,
                             probe_stride: int = 1,
                             win_tol_db: float = 0.05,
-                            win_ref_psnr: float = 35.0):
+                            win_ref_psnr: float = 35.0, mesh=None):
     """Self-validating probe render. Probe, then audit on random rays
     against the exact coarse gate: the false-skip rate on skipped rays
     (``estimate_false_skip``) and, with ``focus``, the windows' predicted
@@ -1089,7 +1116,8 @@ def render_frame_probe_auto(renderer: NeurayRenderer, ref_c: Tensors,
     same modules, ``_with_probe_sample_num``) and audit again; past
     max_probe_sample_num fall back to ``render_frame_skip_empty``, whose
     gate cannot miss. probe_stride > 1 takes effect with focus and
-    image_hw.
+    image_hw. mesh: see the module's doc (on a mesh the probe and the
+    audits shard too).
 
     Returns the frame dict plus ``probe_sample_num`` (the accepted
     value), ``false_skip_rate`` (the last audit), ``fallback``
@@ -1105,24 +1133,25 @@ def render_frame_probe_auto(renderer: NeurayRenderer, ref_c: Tensors,
         r = _with_probe_sample_num(renderer, psn)
         if use_stride:
             probe_out = _strided_focus_probe(r, ref_c, que, threshold,
-                                             image_hw, probe_stride)
+                                             image_hw, probe_stride, mesh)
             keep_mask = probe_out[0]
         else:
-            probe_out = (focus_probe_rays(r, ref_c, que) if focus
-                         else probe_rays(r, ref_c, que))
+            probe_out = (focus_probe_rays if focus else probe_rays)(
+                r, ref_c, que, mesh)
             score = probe_out[0] if focus else probe_out
             keep_mask = _host(score)[0] > threshold
         if dilate > 0 and image_hw is not None:
             keep_mask = _dilate_keep_mask(keep_mask, image_hw, dilate)
         fs = estimate_false_skip(r, ref_c, que, np.nonzero(~keep_mask)[0],
-                                 threshold, validate_rays, seed)
+                                 threshold, validate_rays, seed, mesh)
         info["false_skip_rate"] = fs
         info["probe_sample_num"] = psn
         wc_db = 0.0
         if focus and fs <= tol:
             wc = estimate_window_clip(
                 r, ref_c, que, np.nonzero(keep_mask)[0], probe_out[1],
-                probe_out[2], threshold, seed=seed, ref_psnr=win_ref_psnr)
+                probe_out[2], threshold, seed=seed, ref_psnr=win_ref_psnr,
+                mesh=mesh)
             info["window_clip"] = wc["clip_mass"]
             info["window_clip_db"] = wc_db = wc["clip_db"]
         info["audit_trail"].append({
@@ -1130,21 +1159,21 @@ def render_frame_probe_auto(renderer: NeurayRenderer, ref_c: Tensors,
             "window_clip_db": wc_db if focus and fs <= tol else None,
             "kept_fraction": float(keep_mask.mean())})
         if fs <= tol and wc_db <= win_tol_db:
+            kw = dict(threshold=threshold, keep_base=keep_base,
+                      image_hw=image_hw, dilate=dilate, probe_out=probe_out,
+                      mesh=mesh)
             if focus:
                 out = render_frame_probe_focus(
-                    r, ref_c, que, threshold=threshold, keep_base=keep_base,
-                    image_hw=image_hw, dilate=dilate, probe_out=probe_out,
-                    probe_stride=probe_stride if use_stride else 1)
+                    r, ref_c, que, probe_stride=probe_stride if use_stride
+                    else 1, **kw)
             else:
-                out = render_frame_probe_skip(
-                    r, ref_c, que, threshold=threshold, keep_base=keep_base,
-                    image_hw=image_hw, dilate=dilate, probe_out=probe_out)
+                out = render_frame_probe_skip(r, ref_c, que, **kw)
             out.update(info)
             return out
         if psn * 2 > max_probe_sample_num:
             out = render_frame_skip_empty(renderer, ref_c, que,
                                           threshold=threshold,
-                                          keep_base=keep_base)
+                                          keep_base=keep_base, mesh=mesh)
             info["fallback"] = "two_phase"
             out.update(info)
             return out

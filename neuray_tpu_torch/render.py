@@ -38,8 +38,14 @@ which ``tools/convert_reference_ckpt.py`` writes from the reference's
 ``model_best.pth``; the port's counterpart for that ``.pth`` is
 ``python -m neuray_tpu_torch.convert_reference_ckpt``, which writes the
 ``ckpt_best.pt`` read here. Not ported: the JAX package's segmenting of a
-frame into bounded device calls (the chunk loops bound memory here) and
-its multi-device mesh.
+frame into bounded device calls (the chunk loops bound memory here).
+
+Under ``torchrun --nproc_per_node N -m neuray_tpu_torch.render ...`` the
+CLI renders on N ranks, as the JAX package's on its device mesh: every
+rank encodes the scene, the ray phase and every skip mode's probe,
+audits and render phases shard the rays (``parallel/sharding.py``, the
+drivers' ``mesh``), for gen and ft alike, and rank 0 alone writes the
+JPEGs, depth maps, ground truth and audit log.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from neuray_tpu_torch.data.database import (
     get_database_split, parse_database_name)
@@ -60,6 +67,7 @@ from neuray_tpu_torch.data.train_dataset import build_src_imgs_info_select
 from neuray_tpu_torch.data.view_select import select_working_views_db
 from neuray_tpu_torch.models import renderer as R
 from neuray_tpu_torch.models.ft import load_gen_state
+from neuray_tpu_torch.parallel import sharding as P
 from neuray_tpu_torch.train.metrics import color_map_backward
 from neuray_tpu_torch.utils.config import load_cfg
 from neuray_tpu_torch.utils.device import full_f32, resolve_device
@@ -138,9 +146,10 @@ class SkipRenderer:
     auto modes' state: the probe size the audit accepted last (frames
     start from it: it only grows) and, once an audit has rejected every
     size, the exact gate for every later frame. Each auto frame appends
-    its audit to ``audit_path``."""
+    its audit to ``audit_path`` (rank 0 of a ``mesh``, over whose ranks
+    the drivers shard)."""
 
-    def __init__(self, renderer, cfg, render_depth, audit_path):
+    def __init__(self, renderer, cfg, render_depth, audit_path, mesh=None):
         self.renderer = self.probing = renderer
         self.mode = cfg.get("skip_mode", "two_phase")
         self.threshold = cfg.get("skip_empty_threshold", 0.05)
@@ -154,9 +163,11 @@ class SkipRenderer:
             else ()) + (("render_depth",) if render_depth else ())
         self.fallback = False
         self.audit_path = audit_path
+        self.mesh = mesh
 
     def __call__(self, qi, ref_c, que, hw):
-        kw = dict(threshold=self.threshold, keep_base=self.keep_base)
+        kw = dict(threshold=self.threshold, keep_base=self.keep_base,
+                  mesh=self.mesh)
         if self.mode in ("auto", "auto_focus") and not self.fallback:
             out = R.render_frame_probe_auto(
                 self.probing, ref_c, que, image_hw=hw, dilate=self.dilate,
@@ -168,6 +179,8 @@ class SkipRenderer:
                     self.renderer, out["probe_sample_num"])
             else:
                 self.fallback = True
+            if self.mesh is not None and not self.mesh.is_main:
+                return out
             print(f"auto probe frame {qi}: psn={out['probe_sample_num']} "
                   f"false_skip={out['false_skip_rate']:.4f} "
                   f"fallback={out['fallback']}", flush=True)
@@ -206,10 +219,13 @@ def load_gen_renderer(cfg, render_cfg, device):
 
 
 def render_video_gen(database_name, cfg_fn, pose_type, pose_fn,
-                     render_depth, ray_num, rb, re, device=None):
+                     render_depth, ray_num, rb, re, device=None, mesh=None):
     """Render frames rb..re of pose_type with the generalization model of
-    the config cfg_fn (see the module's doc)."""
-    device = resolve_device(device)
+    the config cfg_fn (see the module's doc), on ``mesh``'s ranks (one
+    process on ``device`` without one)."""
+    if mesh is None:
+        mesh = P.make_mesh(resolve_device(device))
+    device = mesh.device
     cfg = load_cfg(cfg_fn)
     render_cfg = R.RenderConfig.from_cfg(
         {**cfg, "ray_batch_num": ray_num, "render_depth": render_depth})
@@ -225,23 +241,32 @@ def render_video_gen(database_name, cfg_fn, pose_type, pose_fn,
 
     output_dir = (f'data/render/{database_name.replace("/", "_")}/'
                   f'{cfg["name"]}-{pose_type}')
-    Path(output_dir).mkdir(exist_ok=True, parents=True)
+    writer = mesh.is_main
+    if writer:
+        Path(output_dir).mkdir(exist_ok=True, parents=True)
     keep = ["pixel_colors_nr", "pixel_colors_nr_fine"]
     if render_cfg.use_dr_prediction:
         keep += ["pixel_colors_dr", "pixel_colors_dr_fine"]
     if render_depth:
         keep += ["render_depth", "render_depth_fine"]
 
-    if "skip_auto_win_tol" in cfg:
+    if "skip_auto_win_tol" in cfg and writer:
         print("NOTE: skip_auto_win_tol (hit-mass fraction) was replaced "
               "by skip_auto_win_tol_db (predicted PSNR cost, dB; "
               "default 0.05) — the old knob is ignored", flush=True)
     audit_path = f"{output_dir}/auto_audit.jsonl"
-    skip = (SkipRenderer(renderer, cfg, render_depth, audit_path)
+    skip = (SkipRenderer(renderer, cfg, render_depth, audit_path, mesh)
             if cfg.get("skip_empty_rays", False)
             and render_cfg.use_hierarchical_sampling else None)
+    rays = P.make_sharded_render_fn(renderer, mesh, keep, pre_encoded=True)
+    re = len(que_poses) if re == -1 else min(re, len(que_poses))
+    # rank 0's list of the frames to render (a frame already written is
+    # skipped), the same on every rank
+    todo = mesh.broadcast_object(
+        [qi for qi in range(rb, re)
+         if not os.path.exists(f"{output_dir}/{qi}-nr_fine.jpg")])
     # a fresh audit log a run: the auto modes' frames append to it
-    if cfg.get("skip_mode") in ("auto", "auto_focus") and \
+    if writer and cfg.get("skip_mode") in ("auto", "auto_focus") and \
             os.path.exists(audit_path):
         os.remove(audit_path)
     use_src_imgs = cfg.get("use_src_imgs", False) or \
@@ -249,13 +274,10 @@ def render_video_gen(database_name, cfg_fn, pose_type, pose_fn,
     cv_nn_num = cfg.get("cost_volume_nn_num", 3)
     pad_interval = cfg.get("ref_pad_interval", 16)
 
-    re = len(que_poses) if re == -1 else min(re, len(que_poses))
     # the scene encode of the last ref set: consecutive poses mostly
     # select the same views, and the encode depends on nothing else
     enc_key = ref_c = None
-    for qi in range(rb, re):
-        if os.path.exists(f"{output_dir}/{qi}-nr_fine.jpg"):
-            continue
+    for qi in todo:
         ref_ids = ref_ids_list[qi]
         key = tuple(str(i) for i in ref_ids)
         if key != enc_key:
@@ -283,13 +305,15 @@ def render_video_gen(database_name, cfg_fn, pose_type, pose_fn,
         if skip is not None:
             out = skip(qi, ref_c, que, (h, w))
         else:
-            out = R.render_rays(renderer, ref_c, que, keep)
+            out = rays(ref_c, que)
+        if not writer:
+            continue
         save_renderings(output_dir, qi, out, h, w)
         if render_depth:
             save_depth(output_dir, qi, out, h, w, que_depth_ranges[qi])
         print(f"rendered {qi + 1}/{re}", flush=True)
 
-    if pose_type.startswith("eval"):
+    if pose_type.startswith("eval") and writer:
         gt_dir = f'data/render/{database_name.replace("/", "_")}/gt'
         Path(gt_dir).mkdir(exist_ok=True, parents=True)
         for qi, render_id in enumerate(render_ids):
@@ -315,15 +339,21 @@ def main(argv=None):
                         help="a torch device; default CUDA")
     flags = parser.parse_args(argv)
     full_f32()
-    args = (flags.database_name, flags.cfg, flags.pose_type, flags.pose_fn,
-            flags.depth, flags.ray_num, flags.rb, flags.re, flags.device)
-    if flags.render_type == "gen":
-        render_video_gen(*args)
-    elif flags.render_type == "ft":
-        from neuray_tpu_torch.models.ft import render_video_ft
-        render_video_ft(*args)
-    else:
+    if flags.render_type not in ("gen", "ft"):
         raise NotImplementedError(flags.render_type)
+    owned = not dist.is_initialized()       # torchrun: this process joins
+    mesh = P.make_mesh(resolve_device(flags.device))
+    args = (flags.database_name, flags.cfg, flags.pose_type, flags.pose_fn,
+            flags.depth, flags.ray_num, flags.rb, flags.re, mesh.device, mesh)
+    try:
+        if flags.render_type == "gen":
+            render_video_gen(*args)
+        else:
+            from neuray_tpu_torch.models.ft import render_video_ft
+            render_video_ft(*args)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ from ``np.random.RandomState(1234 + start step)``; the fine sampler's
 draws from a CPU ``torch.Generator`` seeded 7 + the start step, as in
 the JAX trainer), a validation of the initial state, and the val views
 (``FtRenderer.validate_view``, logged to ``val.txt``).
+
+On more than one rank every step is ray-sharded (``FtRenderer.forward``
+with the mesh, the losses summed over the ranks, as the JAX trainer's
+``make_sharded_train_step``): every rank draws the same batch and the
+same fine draws, renders its slice of the rays, and the gradients are
+averaged; validation renders shard the rays too.
 """
 from __future__ import annotations
 
@@ -21,6 +27,8 @@ import numpy as np
 import torch
 
 from neuray_tpu_torch.models.ft import FtRenderer, make_ft_render_fn
+from neuray_tpu_torch.parallel.sharding import Mesh
+from neuray_tpu_torch.train.losses import build_losses
 from neuray_tpu_torch.train.trainer import BaseTrainer
 
 
@@ -43,9 +51,19 @@ class FtTrainer(BaseTrainer):
         "validate_initialization": True,
     }
 
-    def __init__(self, cfg: Dict[str, Any], device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: Dict[str, Any], device=None,
+                 mesh: Mesh | None = None):
+        super().__init__(cfg, device, mesh)
         self.ft = FtRenderer(self.cfg, self.device)
+        if self.mesh.size > 1:
+            self.loss_fn = build_losses(self.cfg, self.mesh)
+            rn, n = self.cfg["train_ray_num"], self.mesh.size
+            pad = (-rn) % n
+            if self.mesh.is_main:
+                print(f"ft training ray-sharded over {n} ranks"
+                      + (f" (ray batch {rn} padded +{pad} to split evenly; "
+                         "pad rays weighted out of the loss)" if pad
+                         else ""), flush=True)
 
     @property
     def model(self) -> FtRenderer:
@@ -73,7 +91,8 @@ class FtTrainer(BaseTrainer):
 
     def _losses(self, batch) -> Dict[str, torch.Tensor]:
         ref_idx, que, que_i = batch
-        return self.loss_fn(self.ft(ref_idx, que, que_i, self.generator), {})
+        return self.loss_fn(
+            self.ft(ref_idx, que, que_i, self.generator, self.mesh), {})
 
     # ---------------- validation ----------------
 
@@ -82,7 +101,7 @@ class FtTrainer(BaseTrainer):
         ``val.txt``; none without ``use_validation``."""
         if self.cfg["use_validation"]:
             yield "val", self.cfg["name"], self._val_views(
-                make_ft_render_fn(self.ft))
+                make_ft_render_fn(self.ft, mesh=self.mesh))
 
     def _val_views(self, render_fn):
         for vi in range(len(self.ft.val_ids)):

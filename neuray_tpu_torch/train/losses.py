@@ -2,8 +2,13 @@
 ``neuray_tpu/train/losses.py``; the loss registry keeps the reference
 names 'render', 'depth', 'consist').
 
-One device: the JAX package's ``axis_name`` (ray-sharded reductions over
-a device mesh) is left out until multi-GPU training is ported.
+``group`` stands where the JAX package takes ``axis_name``: a
+``parallel.sharding.Mesh`` whose ranks each hold a slice of one ray
+batch (ray-sharded finetuning, ``models/ft.py``). The render and
+consistency losses then sum their ray-axis numerators and counts over
+the ranks with the differentiable ``all_reduce_sum``, so every rank holds
+the whole batch's loss; ``depth_loss`` reads the (replicated) reference
+views and takes no group, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -12,19 +17,25 @@ from typing import Any, Dict
 import torch
 
 from neuray_tpu_torch.ops.interpolate import grid_sample_nhwc
+from neuray_tpu_torch.parallel.sharding import all_reduce_sum
 
 Tensors = Dict[str, torch.Tensor]
 
 
-def _ray_mean(x: torch.Tensor, weight: torch.Tensor | None = None):
+def _ray_mean(x: torch.Tensor, group=None,
+              weight: torch.Tensor | None = None):
     """Mean over the ray axis (1). ``weight`` [qn, rn] in {0, 1} drops
-    rays from both the numerator and the count (padded rays)."""
-    if weight is None:
+    rays from both the numerator and the count (padded rays). With a
+    ``group`` the ray axis is sharded over its ranks: numerator and count
+    are summed over them, and every rank holds the whole batch's mean."""
+    if weight is None and group is None:
         return x.mean(1)
-    return (x * weight).sum(1) / weight.sum(1)
+    w = torch.ones_like(x) if weight is None else weight
+    return (all_reduce_sum((x * w).sum(1), group)
+            / all_reduce_sum(w.sum(1), group))
 
 
-def render_loss(cfg: Dict[str, Any]):
+def render_loss(cfg: Dict[str, Any], group=None):
     use_ray_mask = cfg.get("use_ray_mask", True)
     use_dr = cfg.get("use_dr_loss", False)
     use_dr_fine = cfg.get("use_dr_fine_loss", False)
@@ -40,8 +51,9 @@ def render_loss(cfg: Dict[str, Any]):
                 rm = data_pr["ray_mask"].float()
                 if weight is not None:
                     rm = rm * weight
-                return (loss * rm).sum(1) / (rm.sum(1) + 1e-3)
-            return _ray_mean(loss, weight)
+                return (all_reduce_sum((loss * rm).sum(1), group)
+                        / (all_reduce_sum(rm.sum(1), group) + 1e-3))
+            return _ray_mean(loss, group, weight)
 
         out = {"loss_rgb_nr": compute(data_pr["pixel_colors_nr"])}
         if use_dr:
@@ -109,7 +121,7 @@ def depth_loss(cfg: Dict[str, Any]):
     return fn
 
 
-def consistency_loss(cfg: Dict[str, Any]):
+def consistency_loss(cfg: Dict[str, Any], group=None):
     def fn(data_pr: Tensors, data_gt: Dict) -> Tensors:
         if "hit_prob_self" not in data_pr:
             return {}
@@ -118,7 +130,7 @@ def consistency_loss(cfg: Dict[str, Any]):
         def ce_loss(p0, p1):
             ce = (-p0 * torch.log(p1 + 1e-5)
                   - (1 - p0) * torch.log(1 - p1 + 1e-5))
-            return _ray_mean(ce.mean(-1), weight)
+            return _ray_mean(ce.mean(-1), group, weight)
 
         out = {"loss_prob": ce_loss(data_pr["hit_prob_nr"].detach(),
                                     data_pr["hit_prob_self"])}
@@ -137,12 +149,27 @@ name2loss = {
     "consist": consistency_loss,
 }
 
+# every value each loss can report (which of them it does depends on the
+# config and the outputs)
+name2values = {
+    "render": ("loss_rgb_nr", "loss_rgb_dr", "loss_rgb_dr_fine",
+               "loss_rgb_nr_fine"),
+    "depth": ("loss_depth", "loss_depth_fine"),
+    "consist": ("loss_prob", "loss_prob_fine"),
+}
 
-def build_losses(cfg: Dict[str, Any]):
+
+def build_losses(cfg: Dict[str, Any], group=None):
     """The configured losses (``cfg["loss"]``, default ['render']) as one
     fn(outputs, batch) -> {name: per-view or per-query loss}; a trainer
-    sums the means of the ``loss*`` entries."""
-    fns = [name2loss[name](cfg) for name in cfg.get("loss", ["render"])]
+    sums the means of the ``loss*`` entries. ``group``: the mesh the ray
+    axis is sharded over (the render and consistency losses' reductions
+    sum over its ranks, so each rank's values are the whole batch's).
+    ``fn.names``: every name fn can report, the keys a data-parallel step
+    averages over the ranks (``parallel.sharding.average_gradients``)."""
+    losses = cfg.get("loss", ["render"])
+    fns = [name2loss[name](cfg, group) if name in ("render", "consist")
+           else name2loss[name](cfg) for name in losses]
 
     def fn(data_pr: Tensors, data_gt: Dict) -> Tensors:
         out = {}
@@ -150,4 +177,5 @@ def build_losses(cfg: Dict[str, Any]):
             out.update(f(data_pr, data_gt))
         return out
 
+    fn.names = tuple(v for name in losses for v in name2values[name])
     return fn

@@ -1,12 +1,25 @@
-"""Generalization training on one device: a step-based loop with Adam,
-checkpoint and resume, periodic validation, best-model selection and
-txt logs (port of ``neuray_tpu/train/trainer.py``; reference
-train/trainer.py and train/train_valid.py). ``BaseTrainer`` holds what
-it shares with the finetuning trainer (``train/ft_trainer.py``).
+"""Generalization training: a step-based loop with Adam, checkpoint and
+resume, periodic validation, best-model selection and txt logs (port of
+``neuray_tpu/train/trainer.py``; reference train/trainer.py and
+train/train_valid.py). ``BaseTrainer`` holds what it shares with the
+finetuning trainer (``train/ft_trainer.py``).
+
+On more than one rank (``torchrun``, or a ``mesh`` from
+``parallel.sharding.make_mesh``) training is data-parallel, as the JAX
+trainer's ``pmap`` step: rank r takes samples r, r + size, r + 2 size,
+... of the index order, one a step, and the gradients and loss values
+are averaged over the ranks before Adam (``average_gradients``, one
+``all_reduce`` a step), so the parameters stay the same on every rank.
+Rank 0 alone writes checkpoints, logs and ``vis_val`` images and keeps
+the best model; a resumed state is rank 0's, broadcast; validation
+renders shard the rays over every rank (``make_sharded_render_fn``) and
+rank 0 scores them. ``n_devices``, when set, must be the world size. The
+JAX trainer stacks same-shape samples for ``pmap`` (``_collect_batch``);
+ranks here build their own graphs, so that is not ported.
 
 What differs from the JAX trainer:
-  * one device (``device``: CUDA unless the caller asks for the CPU);
-    multi-GPU training is not ported yet, so ``n_devices`` > 1 raises;
+  * the device (``device``: CUDA unless the caller asks for the CPU;
+    ``cuda:LOCAL_RANK`` on several ranks);
   * ``torch.optim.Adam`` with optax's defaults (betas 0.9 / 0.999, eps
     1e-8), its learning rate set before every update from the schedule at
     the update count, as optax counts; a parameter without a gradient gets
@@ -15,7 +28,8 @@ What differs from the JAX trainer:
     (``worker_num`` spawned processes; 0 loads in this process), not from
     the JAX trainer's Prefetcher;
   * the fine sampler's draws come from a CPU ``torch.Generator`` seeded
-    with 7, so a run on the card and one on the CPU draw the same u;
+    with 7 (7 + rank on several ranks), so a run on the card and one on
+    the CPU draw the same u;
   * checkpoints are ``torch.save`` files (``ckpt.pt``, ``ckpt_best.pt``)
     of the step, the best metric, the parameters and the optimizer state.
 """
@@ -23,15 +37,15 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterable, Iterator
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from neuray_tpu_torch.data.train_dataset import name2dataset
-from neuray_tpu_torch.models.renderer import (
-    NeurayRenderer, RenderConfig, render_full)
+from neuray_tpu_torch.models.renderer import NeurayRenderer, RenderConfig
+from neuray_tpu_torch.parallel import sharding as P
 from neuray_tpu_torch.train.losses import build_losses
 from neuray_tpu_torch.train.lr import name2lr_manager
 from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
@@ -43,14 +57,19 @@ VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
 
 
 class Logger:
-    """Scalars appended to ``<model_dir>/<prefix>.txt``."""
+    """Scalars appended to ``<model_dir>/<prefix>.txt`` (nothing where not
+    ``enabled``: the ranks other than 0)."""
 
-    def __init__(self, model_dir: str):
-        os.makedirs(model_dir, exist_ok=True)
+    def __init__(self, model_dir: str, enabled: bool = True):
+        if enabled:
+            os.makedirs(model_dir, exist_ok=True)
         self.model_dir = model_dir
+        self.enabled = enabled
 
     def log(self, data: Dict[str, float], prefix: str, step: int,
             verbose: bool = False):
+        if not self.enabled:
+            return
         msg = f"{prefix} step {step} " + " ".join(
             f"{k} {float(v):.5f}" for k, v in data.items())
         with open(f"{self.model_dir}/{prefix}.txt", "a") as f:
@@ -72,25 +91,32 @@ class BaseTrainer:
     ``params``), ``_batches`` (the batches from a step to ``total_step``),
     ``_losses`` (a batch -> its losses) and ``_val_sets`` (each val set's
     log name, the name of its ``vis_img`` folder and its views'
-    outputs)."""
+    outputs). On several ranks (``mesh``) the module docstring's rules
+    hold: rank 0 writes, the gradients are averaged."""
 
     default_cfg: Dict[str, Any] = {}
     # also validate at the last step (the gen trainer does; finetuning
     # validates only every val_interval steps, as in the JAX package)
     val_at_last_step = False
 
-    def __init__(self, cfg: Dict[str, Any], device=None):
+    def __init__(self, cfg: Dict[str, Any], device=None,
+                 mesh: P.Mesh | None = None):
         self.cfg = {**self.default_cfg, **cfg}
-        if (self.cfg["n_devices"] or 1) > 1:
-            raise NotImplementedError("training on more than one device is "
-                                      "not ported yet (ROADMAP item 11)")
         unknown = set(self.cfg["val_metric"]) - set(name2metrics)
         if unknown:
             raise NotImplementedError(f"val metrics {sorted(unknown)} are "
                                       "not ported yet")
-        self.device = resolve_device(device)
+        self.mesh = (mesh if mesh is not None
+                     else P.make_mesh(resolve_device(device)))
+        n = self.cfg["n_devices"]
+        if n and n != self.mesh.size:
+            raise ValueError(
+                f"n_devices is {n} but this run has {self.mesh.size} "
+                f"rank(s): launch it with torchrun --nproc_per_node {n} -m "
+                "neuray_tpu_torch.run_training --cfg <config>")
+        self.device = self.mesh.device
         self.model_dir = f'{self.cfg["output_root"]}/{self.cfg["name"]}'
-        self.logger = Logger(self.model_dir)
+        self.logger = Logger(self.model_dir, self.mesh.is_main)
         self.schedule = name2lr_manager[self.cfg["lr_type"]](
             self.cfg["lr_cfg"])
         self.loss_fn = build_losses(self.cfg)
@@ -111,6 +137,8 @@ class BaseTrainer:
         self.opt_count = 0
 
     def _save(self, step: int, best_metric: float, path: str = "ckpt.pt"):
+        if not self.mesh.is_main:
+            return
         torch.save({"step": int(step), "best_metric": float(best_metric),
                     "params": self.model.state_dict(),
                     "opt_state": self.optimizer.state_dict(),
@@ -120,14 +148,20 @@ class BaseTrainer:
     def _start(self) -> tuple[int, float]:
         """Resume from ``ckpt.pt`` if there is one (its optimizer state
         strictly unless ``resume_reset_opt``), else a fresh state; then a
-        fresh optimizer. Returns (step, best metric)."""
+        fresh optimizer. On several ranks the checkpoint is rank 0's,
+        broadcast, and a fresh state is rank 0's too. Returns (step, best
+        metric)."""
         path = f"{self.model_dir}/ckpt.pt"
-        if not os.path.exists(path):
+        restored = None
+        if self.mesh.is_main and os.path.exists(path):
+            restored = torch.load(path, map_location="cpu",
+                                  weights_only=True)
+        restored = self.mesh.broadcast_object(restored)
+        if restored is None:
             self._init_state()
+            P.broadcast_module(self.model, self.mesh)
             self.build_optimizer()
             return 0, -1e9
-        restored = torch.load(path, map_location=self.device,
-                              weights_only=True)
         self._load_state(restored["params"])
         self.build_optimizer()
         if _restore_opt_state(self.optimizer, restored["opt_state"],
@@ -135,7 +169,8 @@ class BaseTrainer:
                                                       False)):
             self.opt_count = restored["opt_count"]
         step = int(restored["step"])
-        print(f"resumed from step {step}", flush=True)
+        if self.mesh.is_main:
+            print(f"resumed from step {step}", flush=True)
         return step, float(restored["best_metric"])
 
     def _init_state(self) -> None:
@@ -159,7 +194,8 @@ class BaseTrainer:
         ``loss_total``."""
         metrics = adam_update(self.optimizer, self.params,
                               self.schedule(self.opt_count),
-                              self._losses(batch))
+                              self._losses(batch), self.mesh,
+                              self.loss_fn.names)
         self.opt_count += 1
         return metrics
 
@@ -210,12 +246,15 @@ class BaseTrainer:
         ``pixel_colors_gt``, and the image's (h, w)) through the val
         metrics (``vis_img`` writes under ``<model_dir>/vis_val``); log
         their means to ``<name>.txt`` and return the key metric of the last
-        set (None without val sets)."""
+        set (None without val sets). Every rank renders the views; rank 0
+        scores them (None on the others)."""
         key_vals = []
         for name, vis_name, views in self._val_sets():
             results: Dict[str, list] = {}
             t0 = time.time()
             for i, (outputs, que_shape) in enumerate(views):
+                if not self.mesh.is_main:
+                    continue
                 for metric in self.val_metrics:
                     for k, v in metric(
                             outputs, {"que_shape": que_shape}, step,
@@ -255,8 +294,9 @@ class Trainer(BaseTrainer):
     }
     val_at_last_step = True
 
-    def __init__(self, cfg: Dict[str, Any], device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: Dict[str, Any], device=None,
+                 mesh: P.Mesh | None = None):
+        super().__init__(cfg, device, mesh)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             self.renderer = NeurayRenderer(RenderConfig.from_cfg(self.cfg))
@@ -287,10 +327,13 @@ class Trainer(BaseTrainer):
     # ---------------- steps ----------------
 
     def _samples(self, n: int) -> Iterator[Dict[str, Any]]:
-        """n training samples in index order (from 0, wrapping at the
-        dataset's length), made by ``worker_num`` spawned processes, or
-        in this one for 0."""
-        order = [i % len(self.train_dataset) for i in range(n)]
+        """This rank's n training samples of the index order (from 0,
+        wrapping at the dataset's length): rank r of size takes r,
+        r + size, ...; made by ``worker_num`` spawned processes, or in
+        this one for 0."""
+        size, rank = self.mesh.size, self.mesh.rank
+        order = [(i * size + rank) % len(self.train_dataset)
+                 for i in range(n)]
         workers = self.cfg["worker_num"]
         if workers == 0:
             return (self.train_dataset[i] for i in order)
@@ -300,7 +343,7 @@ class Trainer(BaseTrainer):
             pin_memory=self.device.type == "cuda"))
 
     def _batches(self, step: int) -> Iterator[Dict[str, Any]]:
-        self.generator.manual_seed(7)
+        self.generator.manual_seed(7 + self.mesh.rank)
         for sample in self._samples(max(self.cfg["total_step"] - step, 0)):
             yield self.to_device(sample)
 
@@ -340,25 +383,31 @@ class Trainer(BaseTrainer):
                    self._val_views(self._val_datasets[name]))
 
     def _val_views(self, dataset):
+        render = P.make_sharded_render_fn(self.renderer, self.mesh, VAL_KEEP)
         for i in range(len(dataset)):
             sample = self.to_device(dataset[i])
             que = {k: v for k, v in sample["que"].items() if k != "imgs"}
-            outputs = {k: v.cpu().numpy() for k, v in render_full(
-                self.renderer, sample["ref"], que, VAL_KEEP,
-                sample.get("src")).items()}
+            outputs = {k: v.cpu().numpy() for k, v in render(
+                sample["ref"], que, sample.get("src")).items()}
             imgs = sample["que"]["imgs"]
             outputs["pixel_colors_gt"] = imgs.reshape(1, -1, 3).cpu().numpy()
             yield outputs, tuple(imgs.shape[1:3])
 
 
 def adam_update(optimizer: torch.optim.Optimizer, params,
-                lr: float, losses: Dict[str, torch.Tensor]
-                ) -> Dict[str, float]:
+                lr: float, losses: Dict[str, torch.Tensor],
+                mesh: P.Mesh | None = None,
+                names: Iterable[str] = ()) -> Dict[str, float]:
     """One update of ``optimizer`` at ``lr`` on ``losses`` (name -> per-view
     or per-query loss): total = the sum of the means of the ``loss*``
     entries, backward, and a zero gradient for each of ``params`` without
-    one (so every Adam moment moves as optax's does). Returns each loss's
-    mean and ``loss_total``."""
+    one (so every Adam moment moves as optax's does, and every rank
+    reduces the same set). On a ``mesh`` of more than one rank the
+    gradients and the loss values are then averaged over the ranks
+    (``average_gradients``: a loss only some ranks have, over those;
+    ``names``, every loss name a rank may report, ``build_losses``'
+    ``fn.names``).
+    Returns each loss's mean and ``loss_total``."""
     means = {k: v.mean() for k, v in losses.items()}
     total = sum(v for k, v in means.items() if k.startswith("loss"))
     optimizer.zero_grad(set_to_none=True)
@@ -366,11 +415,17 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    values = {k: v.detach() for k, v in {**means, "loss_total": total}.items()}
+    if mesh is not None and mesh.size > 1:
+        values = P.average_gradients(params, mesh, values,
+                                     (*names, "loss_total"))
+    else:
+        values = dict(zip(values, torch.stack(
+            list(values.values())).tolist()))
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
-    values = torch.stack([*means.values(), total]).tolist()
-    return dict(zip([*means, "loss_total"], values))
+    return values
 
 
 def _restore_opt_state(optimizer: torch.optim.Optimizer,

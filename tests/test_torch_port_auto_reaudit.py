@@ -70,7 +70,7 @@ def script_audit(monkeypatch, verdict):
     calls = []
 
     def fake(renderer, ref_c, que, skip_idx, threshold, sample_rays=2048,
-             seed=0):
+             seed=0, mesh=None):
         psn = renderer.cfg.probe_sample_num
         calls.append((psn, verdict(psn, calls)))
         return calls[-1][1]

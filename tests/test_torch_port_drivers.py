@@ -310,7 +310,8 @@ def test_strided_focus_probe(monkeypatch, h, w, stride):
         probed["jax"] = np.asarray(que_p["coords"])
         return tuple(jnp.asarray(x) for x in (score, near, far))
 
-    def port_probe(renderer, ref_c, que_p):
+    def port_probe(renderer, ref_c, que_p, mesh=None):
+        assert mesh is None
         probed["port"] = que_p["coords"].numpy()
         return tuple(torch.from_numpy(x) for x in (score, near, far))
 

@@ -156,7 +156,7 @@ def test_ft_init_from_gen_checkpoint(tmp_path):
 @pytest.mark.parametrize("over,error,match", [
     ({"val_metric": ["psnr_ssim", "no_such_metric"]}, NotImplementedError,
      "no_such_metric"),
-    ({"n_devices": 2}, NotImplementedError, "item 11"),
+    ({"n_devices": 2}, ValueError, "torchrun --nproc_per_node 2"),
     ({"use_bf16": True}, NotImplementedError, "f32 only")])
 def test_unported_options_raise(tmp_path, over, error, match):
     with pytest.raises(error, match=match):

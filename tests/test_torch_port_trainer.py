@@ -165,7 +165,7 @@ def test_trainer_needs_a_device(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         T.Trainer(make_cfg(tmp_path))
     assert T.Trainer(make_cfg(tmp_path), device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         T.Trainer(make_cfg(tmp_path, n_devices=2), device="cpu")
     with pytest.raises(NotImplementedError, match="no_such_metric"):
         T.Trainer(make_cfg(tmp_path,
