@@ -20,7 +20,7 @@ Phases, one line each, any failure raising (exit code != 0):
      then a timed frame whose kernel
      launches are counted; outputs finite, PSNR against the ground-truth
      image >= 24 dB;
-  5. 2048 rays through the image centre again from the same encoded
+  5. 1024 rays (one chunk) through the image centre again from the same encoded
      maps, on the card (kernel) and on the CPU (plain PyTorch): each pass
      agrees to 1e-4 on the same inputs (``in_situ``);
   6. the shipped fast eval profile (``configs/gen/neuray_gen_depth_fast
@@ -28,7 +28,7 @@ Phases, one line each, any failure raising (exit code != 0):
      probe every 2nd pixel) on the same scene, weights and query:
      warm-up frame, then a timed frame (encode + ``render_frame_probe_auto``)
      whose gather launches must equal what its chunk counts imply;
-     GT-PSNR >= 24 dB; then 2048 kept rays through the image centre,
+     GT-PSNR >= 24 dB; then 1024 kept rays through the image centre,
      card against CPU inside the probe's windows, each pass to 1e-4;
   7. ``bench.py``'s accelerator default on the same scene, weights and
      query: bf16 compute and the u8 gather map, half-grid init diff,
@@ -39,7 +39,7 @@ Phases, one line each, any failure raising (exit code != 0):
      Then the same profile with a bf16 map (no u8) and in f32, one frame
      each: PSNR of each bf16 frame against the f32 frame >= 30 dB (a
      broken route, not rounding) and the count of rays whose keep
-     decision differs. Then 2048 kept rays through the image centre, card
+     decision differs. Then 1024 kept rays through the image centre, card
      against CPU inside the probe's windows, each pass's colours within
      ``BF16_PASS_BOUND`` = 0.05 on the same inputs: two bf16
      implementations of a pass round differently, and the CPU test
@@ -107,8 +107,8 @@ Phases, one line each, any failure raising (exit code != 0):
  14. the render and eval CLIs (``cli_phase``) on phase 9's scene with the
      trained weights as the gen checkpoint: ``python -m
      neuray_tpu_torch.render`` with ``configs/gen/neuray_gen_depth.yaml``
-     on 2 eval views, with ``neuray_gen_depth_fast.yaml`` (auto_focus and
-     its audit log) on 3, and ``--render_type ft`` on one pose from phase
+     on 1 eval view, with ``neuray_gen_depth_fast.yaml`` (auto_focus and
+     its audit log) on 2, and ``--render_type ft`` on one pose from phase
      9's finetuned checkpoint; every frame's JPEGs equal to its driver
      called directly, its gather launches held to its chunk counts, one
      encode a ref set, s a frame, encode s and JPEG write ms; a rerun
@@ -129,7 +129,7 @@ Phases, one line each, any failure raising (exit code != 0):
      fern and desktop configs (``ft_db_phase``, ``FT_DB_SCENES``), each
      on a scene written at its reader's real size (LLFF 1008x756 padded
      to 1008x768; DTU test 800x600 padded to 800x608; the example layout
-     at 1280x720), 3 + 10 steps held as phase 9's, steps/s beside phase
+     at 1280x720), 3 + 6 steps held as phase 9's, steps/s beside phase
      9's, the validations (the configs' initial one on birds, one at the
      end, on the first val view) printed, the padded maps' gathers timed
      forward and backward on their real coordinates, and on birds one
@@ -143,7 +143,7 @@ Phases, one line each, any failure raising (exit code != 0):
  17. direct rendering (``dr_phase``): phase 4's exact frame with
      ``use_dr_prediction``: ``pixel_colors_nr_fine`` bit-equal to phase
      4's, the DR colours' GT-PSNR, rays/s beside phase 4's, card vs CPU
-     on 2048 centre rays; one render CLI frame whose ``-dr.jpg`` equals
+     on 1024 centre rays; one render CLI frame whose ``-dr.jpg`` equals
      its driver's; one training step with the DR losses card vs CPU.
  18. multi-GPU (``multi_gpu_phase``): 2 spawned ranks (on one card they
      share it over gloo; one a card over nccl where there are two), the
@@ -161,6 +161,28 @@ Phases, one line each, any failure raising (exit code != 0):
      ``MG_CLI_UPDATE_SHARE`` of the update's effect. Each rank's gather
      launches, times and peak memory printed beside how the ranks sit on
      the cards.
+ 19. the analytic scenes (``scenes_phase``): (a) the blobs with
+     ``tools/bench_weights_blobs.npz`` at 800x800, 8 views, 64 + 64
+     samples: the exact f32 frame (rays/s, launches held, GT-PSNR on every
+     8th pixel and row within 0.05 dB of the JAX package's), then
+     ``render_frame_probe_auto`` on the bench route (bf16 + u8, probe from
+     8, threshold 0.01, dilate 1, stride 2, tol 0.02, 0.05 dB): accepted
+     probe, false-skip rate, clip, kept fraction, rays/s, launches held by
+     instantiation, GT-PSNR no more than 0.5 dB below the exact frame's;
+     (b) the room with ``bench_weights_room_strong.npz``: the exact frame
+     held the same way, the auto frame must reject the windows and fall
+     back to the two-phase render, bit-equal to ``render_frame_skip_empty``
+     on the same route, and the two-phase frame on the bf16 and on the
+     bf16 + u8 route >= 30 dB against the exact f32 frame; (c) the pan
+     trajectory (``python -m neuray_tpu_torch.check_trajectory_escalation``
+     at its defaults, 400x400, 7 frames): no larger probe accepted before
+     the rods enter the frustum, an escalation or fallback at or after
+     it; (d) the main of ``python -m neuray_tpu_torch.make_bench_weights
+     --scene blobs`` in a fresh process, 40 steps at 400 px: steps/s, the
+     loss, 5 forward and 2 backward gather launches a step, its npz read
+     back in that process rendering a chunk equal to the trained model's,
+     one step's gradients card vs CPU; then the room frame's and a pan
+     frame's real-coordinate gathers timed as forward rows.
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``, and its
@@ -202,7 +224,10 @@ CHUNK = 1024
 # (a whole frame took 10-13 s of the run; phase 18 needs the time)
 WARMUP_CHUNKS = 8
 DN = 64
-N_CHECK = 2048
+# the card-vs-CPU checks' rays: one CHUNK, the main path's chunk, through
+# the image centre (the CPU's plain passes over it are most of phases 4-7's
+# check time)
+N_CHECK = CHUNK
 PSNR_FLOOR = 24.0
 # configs/gen/neuray_gen_depth.yaml as RenderConfig fields, in CHUNK-ray
 # chunks (tests/test_torch_port_render.py holds this to the parsed file)
@@ -404,6 +429,19 @@ FT_CV_PROFILE = dict(
     val_set_list=[{"name": "scene", "type": "ft", "cfg": {
         "database_name": "nerf_synthetic/lego/black_800",
         "database_split": "val_all"}}])
+
+
+# phase 19: the analytic scenes of neuray_tpu_torch/data/synthetic.py and
+# their trained weights under tools/. The blobs and the room frames are
+# 800x800 from RFN views of RandomState(0), 64 + 64 samples; each exact f32
+# frame's GT-PSNR on every SCENE_PSNR_STRIDE-th pixel and row is held
+# within SCENE_PSNR_TOL dB of the JAX package's (SCENE_JAX_GT_PSNR, from
+# ``python tests/test_torch_port_scene_quality.py`` on the CPU)
+SCENE_WEIGHTS = {"blobs": "bench_weights_blobs.npz",
+                 "room": "bench_weights_room_strong.npz"}
+SCENE_PSNR_STRIDE = 8
+SCENE_JAX_GT_PSNR = {"blobs": 32.9311, "room": 19.0344}
+SCENE_PSNR_TOL = 0.05
 
 
 def log(*args):
@@ -1238,6 +1276,29 @@ def bench_profile(R, GA, renderer, ref, que, gt):
     return [f["launches"] for f in (u8, bf16, f32)], u8
 
 
+def scene_frame(name, size=H):
+    """Phase 19's frame of the named scene (``data/synthetic.py:
+    named_scene``): RFN reference views of ``RandomState(0)`` and the
+    full-image query that follows them, as numpy arrays, and the query's
+    ground truth [size, size, 3]."""
+    from neuray_tpu_torch.data.synthetic import (
+        make_query, make_sphere_scene, named_scene)
+    spheres, depth_range = named_scene(name)
+    rng = np.random.RandomState(0)
+    ref = make_sphere_scene(rng, RFN, size, size, spheres, depth_range)
+    que = make_query(rng, size, size, 0, full_image=True, spheres=spheres,
+                     depth_range=depth_range)
+    return ref, que, que.pop("imgs")[0]
+
+
+def scene_psnr_rays(size=H):
+    """The rays of every SCENE_PSNR_STRIDE-th pixel of every
+    SCENE_PSNR_STRIDE-th row of a size x size frame, as indices."""
+    ys, xs = np.meshgrid(np.arange(0, size, SCENE_PSNR_STRIDE),
+                         np.arange(0, size, SCENE_PSNR_STRIDE), indexing="ij")
+    return (ys * size + xs).ravel()
+
+
 def cv_psnr_rays():
     """The query's rays on every CV_PSNR_STRIDE-th pixel of every
     CV_PSNR_STRIDE-th row, as indices into its CV_QH x CV_QW rays."""
@@ -1344,7 +1405,7 @@ def cv_phase(GA, R, dev, weights):
        MVSNet and its parts, homo_warp beside its bytes bound), a
        profiled encode and a profiled chunk (kernels, idle share), the
        centre chunk's 64-ch map gathers as forward rows on their real
-       coords (``kernel_row``), and 2048 rays through the image centre,
+       coords (``kernel_row``), and 1024 rays through the image centre,
        card against CPU per pass at 1e-4 on the same encoded maps
        (``in_situ``).
     2. The bench default (``CV_BENCH_PROFILE``: bf16 + u8,
@@ -1373,18 +1434,27 @@ def cv_phase(GA, R, dev, weights):
     def capture_centre(feats, *args):
         if feats.shape[-1] == 64:
             fmap.append(None)
-            if (len(fmap) - 1) // 2 == n_chunks // 2:
+            if (len(fmap) - 1) // 2 == WARMUP_CHUNKS // 2:
                 keep_points(captured, *args[:2])
         return gather(feats, *args)
 
+    # the warm-up: WARMUP_CHUNKS chunks around the centre chunk, whose
+    # gathers' points are kept, and the frame's output allocations (as
+    # phase 4's)
     t0 = time.perf_counter()
+    start = (n_chunks // 2 - WARMUP_CHUNKS // 2) * CHUNK
     R.interpolate_feature_map = capture_centre
     try:
-        R.render_rays(renderer, R.encode_ref(renderer, ref, src), que)
+        warm = R.render_rays(renderer, R.encode_ref(renderer, ref, src), dict(
+            que, coords=que["coords"][:, start:start + WARMUP_CHUNKS * CHUNK]))
     finally:
         R.interpolate_feature_map = gather
+    frame_sized = [torch.empty((1, n_rays) + v.shape[2:], dtype=v.dtype,
+                               device=dev) for v in warm.values()]
+    del warm, frame_sized
     torch.cuda.synchronize()
-    log(f"cost-volume warm-up frame: {time.perf_counter() - t0:.2f} s")
+    log(f"cost-volume warm-up ({WARMUP_CHUNKS} chunks around the centre and "
+        f"the frame's output allocations): {time.perf_counter() - t0:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -3009,8 +3079,8 @@ def cv_cli_phase(GA, R, dev):
 # sphere, 100 train views with depth maps and CLI_TEST_VIEWS test views)
 CLI_DATABASE = "nerf_synthetic/sphere/black_800"
 CLI_RAY_NUM = 4096            # the render CLI's default --ray_num
-CLI_EXACT_FRAMES = 2
-CLI_FAST_FRAMES = 3
+CLI_EXACT_FRAMES = 1
+CLI_FAST_FRAMES = 2
 CLI_FT_POSES = "inter_8"      # its first pose is the first train view's
 # the floor of the gen frames' GT-PSNR: with the trained weights this
 # scene's eval views render at 19.6-22.4 dB through the CLI (the 8
@@ -3345,7 +3415,7 @@ FAST_CLI_CUTS = dict(GEN_CLI_CUTS, total_step=FAST_CLI_STEPS,
 # 4032x3024 read at 1008x756 and padded to 1008x768; fern in the DTU-test
 # layout, 49 views 1600x1200 read at 800x600 and padded to 800x608;
 # desktop in the example layout, 40 views 1280x720 (a 720p phone frame;
-# the reader does not resize), split example_3. The cuts: 3 + 10 steps
+# the reader does not resize), split example_3. The cuts: 3 + 6 steps
 # (of 200,000), the validations (the initial one the configs ask for on
 # birds alone, FT_DB_INITIAL_VALIDATION, and one at the end) on the first
 # of the val views; the gen config's path made absolute
@@ -3356,7 +3426,7 @@ FT_DB_SCENES = (
      "write_dtu_test", dict(name="fern", n=49, h=1200, w=1600)),
     ("desktop", "configs/train/ft/example/neuray_ft_desktop_pretrain.yaml",
      "write_example", dict(name="desktop", n=40, h=720, w=1280)))
-FT_DB_STEPS = WARMUP_STEPS + 10
+FT_DB_STEPS = WARMUP_STEPS + 6
 FT_DB_CUTS = dict(total_step=FT_DB_STEPS, val_interval=FT_DB_STEPS,
                   train_log_step=10)
 # the initial validation the configs ask for runs on birds alone (the
@@ -3374,13 +3444,18 @@ DR_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
 DR_BOUND, DR_MEAN_BOUND = 5e-4, 1e-4
 
 
+# phase 15a validates on fern alone: lego's validation of this config is
+# not run (phase 12 validates the default training config on both)
+FAST_CLI_VAL_SETS = ("llff_fern",)
+
+
 def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
     """Phase 15a: the fast training config through the CLI (``FAST_CLI_*``)
     on phase 12's data (written, ``NEURAY_DATA_ROOT`` set): every step's
     gathers held (``check_cli_steps``), each step's diff gather on the
     half grid of that step's reference images ([rfn, ceil(h/2),
     ceil(w/2), 4]), steps/s beside phase 12's, a profiled step, the
-    validation's psnr_nr_fine; the half-grid diff gather of a 400x608 crop
+    validation's psnr_nr_fine on fern; the half-grid diff gather of a 400x608 crop
     ([8, 200, 304, 4]) timed on its real coordinates (``kernel_row``),
     and the 64-ch map's rows (``real_coord_rows``). Returns (launches by
     instantiation, backward launches, forward rows, backward rows)."""
@@ -3399,8 +3474,7 @@ def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
     try:
         trainer, steps, launches, backward, val, captured, _, wall = \
             cli_training(GA, R, dev, FAST_CLI_CFG, FAST_CLI_CUTS,
-                         ("llff_fern", "nerf_lego"), GEN_CLI_VAL_VIEWS,
-                         "phase 15a")
+                         FAST_CLI_VAL_SETS, GEN_CLI_VAL_VIEWS, "phase 15a")
     finally:
         N.gather_bilinear_border = own
     step_s = check_cli_steps(steps, FAST_CLI_STEPS, 1, "fast training")
@@ -3411,7 +3485,6 @@ def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
                            f"{diff[:len(steps)]}, the half grids {want}")
     timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
     fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
-    lego_psnr = val_psnr(trainer.model_dir, "nerf_lego")
     log(f"phase 15a training ({FAST_CLI_CFG}): {FAST_CLI_STEPS} steps "
         f"({GEN_CLI_WARMUP} warm-up) on the mixture: step median "
         f"{step_s:.4f} s = {1 / step_s:.2f} steps/s (range "
@@ -3420,8 +3493,7 @@ def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
         f"{steps[-1]['peak'] / 2**30:.2f} GiB, run {wall:.1f} s; every "
         f"step's diff gather on its half grid (maps "
         f"{sorted(set(want))}); phase {launches} + {backward} backward; "
-        f"validation psnr_nr_fine fern {fern_psnr:.3f} dB, lego "
-        f"{lego_psnr:.3f} dB")
+        f"validation psnr_nr_fine fern {fern_psnr:.3f} dB")
     from neuray_tpu_torch.utils.config import load_cfg
     train_cfg = load_cfg(str(Path(__file__).resolve().parent /
                              FAST_CLI_CFG))["train_dataset_cfg"]
@@ -3861,8 +3933,8 @@ def dr_phase(GA, R, dev, work, weights, ref, que, gt, frame, frame_rays_s):
 # each has its own over nccl (parallel/sharding.py: make_mesh)
 MG_RANKS = 2
 MG_WORKERS = 2            # DataLoader workers a rank (phase 12: 6)
-MG_GEN_STEPS = 6          # data-parallel gen steps: the first held, 5 timed
-MG_FT_STEPS = 6           # ray-sharded finetuning steps, likewise
+MG_GEN_STEPS = 4          # data-parallel gen steps: the first held, 3 timed
+MG_FT_STEPS = 4           # ray-sharded finetuning steps, likewise
 MG_CLI_STEPS = 3          # the training CLI's finetuning steps
 # the training CLIs' logged losses, each printed to 5 decimals: two
 # roundings of 5e-6 and 1e-5 left for the sharded run's own rounding
@@ -4411,6 +4483,468 @@ def multi_gpu_phase(GA, dev, work, weights, exact_out, bench_frame, smi,
     return launches
 
 
+# ---------------- phase 19: the analytic scenes ----------------
+
+# the auto driver's start on the scenes (the quality tools' --auto: probe
+# 8, focus 16 + 32) and its arguments on the bench route, bf16 + u8
+SCENE_AUTO_PROFILE = dict(
+    use_hierarchical_sampling=True, use_vis=False, fine_use_vis=False,
+    ray_batch_num=CHUNK, probe_sample_num=8, focus_sample_num=16,
+    focus_fine_sample_num=32, use_bf16=True, gather_quant="u8")
+SCENE_AUTO_ARGS = dict(threshold=0.01, dilate=1, probe_stride=2, tol=0.02,
+                       win_tol_db=0.05)
+# the blobs' auto frame may lose this much GT-PSNR against its exact frame
+SCENE_AUTO_GT_TOL = 0.5
+# the trainer's run in a fresh process: steps at 400 px (the tool's other
+# defaults: 512 rays, 64 + 64 samples on the card), and the card-vs-CPU
+# gradient check's size, rays and samples
+TRAIN_SCENE_STEPS = 40
+SCENE_GRAD = dict(size=64, rays=256, dn=64)
+
+
+def scene_exact_frame(GA, R, dev, name, weights, capture=False):
+    """The named scene's exact f32 frame (``scene_frame``,
+    ``EXACT_PROFILE``): encode + ``render_rays``, its gather launches held
+    to 2 a chunk pass plus the encode's diff gather, outputs finite, GT-PSNR
+    on the whole frame and on ``scene_psnr_rays`` within SCENE_PSNR_TOL of
+    the JAX package's. With ``capture`` the first chunk's coarse 64-ch map
+    gather's points and mask are kept. Returns (renderer, ref, que, gt,
+    the frame's outputs, rays/s, GT-PSNR, captured)."""
+    from neuray_tpu_torch.utils.params import load_flax_params
+    ref_np, que_np, gt = scene_frame(name)
+    ref, que = ({k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+                for d in (ref_np, que_np))
+    renderer = R.NeurayRenderer(R.RenderConfig(**EXACT_PROFILE))
+    load_flax_params(renderer, weights)
+    renderer = renderer.to(dev).eval()
+    n_rays = que["coords"].shape[1]
+    n_chunks = -(-n_rays // CHUNK)
+    gather, captured = R.interpolate_feature_map, []
+
+    def capture_first(feats, *args):
+        if feats.shape[-1] == 64 and not captured:
+            keep_points(captured, *args[:2])
+        return gather(feats, *args)
+
+    GA.reset_launches()
+    t0 = time.perf_counter()
+    if capture:
+        R.interpolate_feature_map = capture_first
+    try:
+        ref_c = R.encode_ref(renderer, ref)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = R.render_rays(renderer, ref_c, que)
+        torch.cuda.synchronize()
+    finally:
+        R.interpolate_feature_map = gather
+    t2 = time.perf_counter()
+    launches = dict(GA.LAUNCHES_BY_DTYPE)
+    if launches != {"f32": 4 * n_chunks + 1, "bf16": 0, "u8": 0}:
+        raise RuntimeError(f"{name} exact frame: gather launches {launches}, "
+                           f"expected {4 * n_chunks + 1} f32")
+    for k, v in out.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise RuntimeError(f"{name} exact frame: {k} is not finite")
+    img = out["pixel_colors_nr_fine"][0].cpu().numpy().reshape(H, W, 3)
+    frame_psnr = psnr(img, gt)
+    sub = scene_psnr_rays()
+    sub_psnr = psnr(img.reshape(-1, 3)[sub], gt.reshape(-1, 3)[sub])
+    rays_s = n_rays / (t2 - t1)
+    log(f"{name} exact frame (f32, {SCENE_WEIGHTS[name]}): {n_rays} rays, "
+        f"encode {t1 - t0:.3f} s, ray loop {t2 - t1:.3f} s = {rays_s:.1f} "
+        f"rays/s, gather launches {launches}; GT-PSNR fine {frame_psnr:.3f} "
+        f"dB, on the {sub.size} rays of every {SCENE_PSNR_STRIDE}th pixel "
+        f"and row {sub_psnr:.4f} dB, the JAX package's (CPU) "
+        f"{SCENE_JAX_GT_PSNR[name]:.4f} dB")
+    if not abs(sub_psnr - SCENE_JAX_GT_PSNR[name]) <= SCENE_PSNR_TOL:
+        raise RuntimeError(f"{name} GT-PSNR {sub_psnr:.4f} dB is "
+                           f"{SCENE_PSNR_TOL} dB or more from the JAX "
+                           f"package's {SCENE_JAX_GT_PSNR[name]:.4f} dB")
+    return renderer, ref, que, gt, out, rays_s, frame_psnr, captured
+
+
+def scene_auto_frame(GA, R, renderer, ref, que, gt, name):
+    """``render_frame_probe_auto`` with focus on the bench route
+    (``SCENE_AUTO_PROFILE``, ``SCENE_AUTO_ARGS``) after its encode, the
+    renderer's weights: its gather launches held to what its chunk counts
+    imply (``expected_fast_launches``; the encode's diff gather f32, the
+    rest u8). Returns (its renderer, encoded maps, frame dict, rays/s,
+    GT-PSNR, launches)."""
+    auto = R.NeurayRenderer(R.RenderConfig(**SCENE_AUTO_PROFILE))
+    auto.load_state_dict(renderer.state_dict())
+    auto = auto.to(ref["imgs"].device).eval()
+    n_rays = que["coords"].shape[1]
+    stride = SCENE_AUTO_ARGS["probe_stride"]
+    n_probe = -(-H // stride) * -(-W // stride)
+    GA.reset_launches()
+    t0 = time.perf_counter()
+    ref_c = R.encode_ref(auto, ref)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = R.render_frame_probe_auto(auto, ref_c, que, image_hw=(H, W),
+                                    focus=True, **SCENE_AUTO_ARGS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(GA.LAUNCHES_BY_DTYPE)
+    expected = {"f32": 1, "bf16": 0,
+                "u8": expected_fast_launches(out, n_rays, n_probe) - 1}
+    img = out["pixel_colors_nr_fine"][0].reshape(H, W, 3)
+    if not np.isfinite(img).all():
+        raise RuntimeError(f"{name} auto frame is not finite")
+    gt_psnr = psnr(img, gt)
+    rays_s = n_rays / (t2 - t1)
+    log(f"{name} auto_focus frame (bf16 + u8, probe from "
+        f"{SCENE_AUTO_PROFILE['probe_sample_num']}, {SCENE_AUTO_ARGS}): "
+        f"encode {t1 - t0:.3f} s, probe + audits + render {t2 - t1:.3f} s "
+        f"= {rays_s:.1f} rays/s; accepted probe {out['probe_sample_num']}, "
+        f"false-skip rate {out['false_skip_rate']:.5f}, window clip "
+        f"{out.get('window_clip')}, clip {out.get('window_clip_db')} dB, "
+        f"fallback {out['fallback']}, kept {out['kept_rays'] / n_rays:.4f} "
+        f"of the rays, GT-PSNR fine {gt_psnr:.3f} dB, gather launches "
+        f"{launches} (expected {expected}); audit trail "
+        f"{json.dumps(out['audit_trail'])}")
+    if launches != expected:
+        raise RuntimeError(f"{name} auto frame: gather launches {launches}, "
+                           f"expected {expected}")
+    return auto, ref_c, out, rays_s, gt_psnr, launches
+
+
+def replayed_grad_check(model, dev, tree, sample, loss_fn, what):
+    """One training step's gradients on the card against the CPU's, from
+    the flax tree ``tree`` loaded into ``model``'s config, on ``sample``
+    (ref, que: numpy), the card given the CPU's fine depths and diff
+    features (as ``grad_check``) and the CPU's masks of every ReLU of the
+    step (``relu_tape`` over the whole forward, ``_Seq``'s relu final
+    included): each leaf within GRAD_BOUND of its norm plus GRAD_FLOOR
+    (``compare_grads``). On weights trained moments before, ReLU inputs
+    within rounding of zero flip between the card's and the CPU's f32
+    forwards in the ResUNets and also in the vis encoder and the
+    aggregation nets (phase 19(d) read 6.9e-3 on a vis encoder leaf with
+    the ResUNets' flips under their f64 witness), so only the masks'
+    replay leaves the two summation orders to compare. The card's own
+    step (its fine depths and masks) is printed beside it, not held."""
+    from neuray_tpu_torch.models import init_net as N
+    from neuray_tpu_torch.models.renderer import NeurayRenderer
+    from neuray_tpu_torch.utils.params import load_flax_params
+    F = torch.nn.functional
+    trained = NeurayRenderer(model.cfg)
+    load_flax_params(trained, tree)
+    ref = {k: torch.from_numpy(v) for k, v in sample["ref"].items()}
+    diff = N.get_diff_feats(
+        ref["imgs"], N.extract_depth_for_init(ref["depth_range"],
+                                              ref["depth"]),
+        ref["depth_range"], ref["poses"], ref["Ks"])
+
+    def step(device, fine=None, masks=None):
+        """(loss, gradients, fine depths, ReLU masks) of the step on
+        device, the fine depths and masks replaced where given."""
+        renderer = copy.deepcopy(trained).to(device).train()
+        for m in renderer.modules():
+            if getattr(m, "final", None) is F.relu:
+                m.final = lambda x: F.relu(x)
+        seen, own = [], renderer._fine_depth
+
+        def fine_depth(*args):
+            d = own(*args) if fine is None else fine[len(seen)].to(device)
+            seen.append(d.detach().cpu())
+            return d
+
+        renderer._fine_depth = fine_depth
+        batch = {k: {n: torch.from_numpy(x).to(device) for n, x in v.items()}
+                 for k, v in sample.items()}
+        used, restore = relu_tape(replay=masks)
+        try:
+            out = renderer(batch["ref"], batch["que"], True, None,
+                           torch.Generator().manual_seed(11))
+            total = sum(v.mean() for k, v in loss_fn(out).items()
+                        if k.startswith("loss"))
+            total.backward()
+        finally:
+            restore()
+        if masks is not None and len(used) != len(masks):
+            raise RuntimeError(f"{what}: the card made {len(used)} ReLU "
+                               f"calls, the CPU {len(masks)}")
+        grads = {n: p.grad.cpu().double()
+                 for n, p in renderer.named_parameters() if p.grad is not None}
+        return total.item(), grads, seen, used
+
+    own_diff = N.get_diff_feats
+    N.get_diff_feats = lambda imgs, *args: diff.to(imgs.device)
+    try:
+        cpu = step(torch.device("cpu"))
+        card = step(dev)
+        given = step(dev, cpu[2], cpu[3])
+    finally:
+        N.get_diff_feats = own_diff
+    flips = sum(int((a != b).sum()) for a, b in zip(card[3], cpu[3]))
+    compare_grads(card[1], cpu[1], f"{what}, the card's own fine depths and "
+                  f"ReLU masks ({flips} elements flipped)", None, False)
+    compare_grads(given[1], cpu[1], f"{what}, the card given the CPU's fine "
+                  f"depths and ReLU masks")
+    log(f"{what}: loss card vs CPU {given[0]:.6f} vs {cpu[0]:.6f}")
+
+
+# phase 19(d)'s fresh process: the trainer's ``main`` (what ``python -m
+# neuray_tpu_torch.make_bench_weights`` runs) on the command's arguments,
+# then in the same process the round trip: the written npz read back by
+# ``load_params_npz`` into a new model renders a CHUNK-ray chunk of the
+# first query view equal, bit for bit, to the trained model in memory with
+# its weights rounded to f16 (the file's leaves). The last line a JSON
+# record of that, the line before it the trainer's record.
+TRAINER_ROUND_TRIP = f"""
+import json, sys
+import torch
+from neuray_tpu_torch import make_bench_weights as MB
+from neuray_tpu_torch.models import renderer as R
+from neuray_tpu_torch.utils.params import load_flax_params, load_params_npz
+model, record = MB.main(sys.argv[1:])
+flags = MB.parse_args(sys.argv[1:])
+flags.n_que = 1
+dev = next(model.parameters()).device
+read, ref, _, ques = MB.build(flags, dev)
+load_flax_params(read, load_params_npz(record['out']))
+model.load_state_dict({{k: v.half().float()
+                       for k, v in model.state_dict().items()}})
+size = ref['imgs'].shape[1]
+xs = torch.arange({CHUNK}, device=dev, dtype=torch.float32)
+que = dict(ques[0], coords=torch.stack(
+    [xs % size, size * 3 // 8 + xs // size], -1)[None])
+with torch.inference_mode():
+    a = read.eval().render_chunk(R.encode_ref(read, ref), que)
+    b = model.eval().render_chunk(R.encode_ref(model, ref), que)
+print(json.dumps({{"rays": {CHUNK}, "rows_from": size * 3 // 8,
+                  "equal": {{k: bool(torch.equal(a[k], b[k])) for k in a}}}}))
+"""
+
+
+def scene_trainer(GA, dev, work):
+    """Phase 19(d): the bench-weights trainer's ``main`` with ``--scene
+    blobs`` in a fresh process (``TRAINER_ROUND_TRIP``), cut to
+    TRAIN_SCENE_STEPS steps at 400 px: steps/s and the loss printed, its
+    gather launches held to 5 forward (the diff, then rgb and the 64-ch map
+    in each pass) and 2 backward a step; its npz round trip held bit for
+    bit in that process; one step's gradients card vs CPU (``SCENE_GRAD``)
+    from the written weights within GRAD_BOUND of each leaf's norm, the
+    card given the CPU's fine depths (Queue 3, fault 3), diff features and
+    ReLU masks (``replayed_grad_check``; hazard j: the trained file varies
+    from run to run with the backward's summation order, and so do the
+    ReLU inputs that round across zero). Returns the gather launches of
+    the fresh process's run (forward by instantiation, and backward)."""
+    import argparse
+    from neuray_tpu_torch import make_bench_weights as MB
+    from neuray_tpu_torch.train.losses import render_loss
+    from neuray_tpu_torch.utils.params import load_params_npz
+    work.mkdir(parents=True, exist_ok=True)
+    out_npz = work / "bench_weights_blobs.npz"
+    out_npz.unlink(missing_ok=True)
+    cmd = [sys.executable, "-c", TRAINER_ROUND_TRIP, "--scene", "blobs",
+           "--steps", str(TRAIN_SCENE_STEPS), "--out", str(out_npz)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"make_bench_weights exited {run.returncode}: "
+                           f"{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-2]:
+        log(f"make_bench_weights: {line}")
+    record, round_trip = map(json.loads, lines[-2:])
+    steps = record["steps"]
+    log(f"make_bench_weights --scene blobs in a fresh process: {wall:.1f} s "
+        f"in all, {steps} steps at {record['size']} px in "
+        f"{record['seconds']:.2f} s = {record['steps_per_s']:.2f} steps/s, "
+        f"loss {record['first_loss']:.5f} -> {record['last_loss']:.5f}, "
+        f"gather launches {record['gather_launches']} forward, "
+        f"{record['backward_launches']} backward")
+    want = {"f32": 5 * steps, "bf16": 0, "u8": 0}
+    if (record["gather_launches"] != want
+            or record["backward_launches"] != 2 * steps):
+        raise RuntimeError(f"make_bench_weights gather launches "
+                           f"{record['gather_launches']} forward, "
+                           f"{record['backward_launches']} backward; "
+                           f"expected {want}, {2 * steps}")
+    if not np.isfinite([record["first_loss"], record["last_loss"]]).all():
+        raise RuntimeError("make_bench_weights: a loss is not finite")
+    log(f"make_bench_weights' npz ({record['mb']} MB), read back by "
+        f"load_params_npz in its process, renders {round_trip['rays']} rays "
+        f"from row {round_trip['rows_from']} equal to the trained model's "
+        f"with f16-rounded weights bit for bit: {round_trip['equal']}")
+    if not all(round_trip["equal"].values()):
+        raise RuntimeError(f"the npz's render differs from the model's: "
+                           f"{round_trip['equal']}")
+    tree = load_params_npz(str(out_npz))
+
+    # one step's gradients from the written weights
+    g_flags = argparse.Namespace(size=SCENE_GRAD["size"], init="depth",
+                                 scene="blobs", rays=SCENE_GRAD["rays"],
+                                 n_que=1)
+    model, ref, _, ques = MB.build(g_flags, torch.device("cpu"),
+                                   SCENE_GRAD["dn"])
+    sample = {"ref": {k: v.numpy() for k, v in ref.items()},
+              "que": {**{k: v.numpy() for k, v in ques[0].items()},
+                      "coords": MB.step_coords(np.random.RandomState(7),
+                                               SCENE_GRAD["size"],
+                                               SCENE_GRAD["rays"])}}
+    loss = render_loss(MB.LOSS_CFG)
+    replayed_grad_check(model, dev, tree, sample, lambda out: loss(out, {}),
+                        f"make_bench_weights step ({SCENE_GRAD}) gradients, "
+                        f"card vs CPU")
+    return record["gather_launches"], record["backward_launches"]
+
+
+def scenes_phase(GA, R, dev, work, parent=None):
+    """Phase 19: the analytic scenes and the skip renderer's audits on
+    them. (a) the blobs: the exact f32 frame (``scene_exact_frame``), then
+    ``render_frame_probe_auto`` on the bench route (``scene_auto_frame``),
+    its GT-PSNR no more than SCENE_AUTO_GT_TOL below the exact frame's.
+    (b) the room with its strong weights: the exact frame, the same auto
+    frame, which must reject the windows and fall back to the two-phase
+    render, its frame bit-equal to ``render_frame_skip_empty`` on the same
+    route; the two-phase frame on the bf16 route and on the bf16 + u8 route
+    against the exact f32 frame, each >= BF16_PSNR_FLOOR. (c) the pan
+    trajectory (``check_trajectory_escalation``, its defaults): no frame
+    before the rods enter accepts a larger probe than frame 0, and the run
+    escalates or falls back at or after that frame. (d) the bench-weights
+    trainer (``scene_trainer``). Then the real-coordinate gathers of the
+    room frame's first chunk and of a pan frame timed as forward rows
+    (``kernel_row``). Returns (the gather launches of its counted runs by
+    instantiation, the backward launches, the forward rows)."""
+    from neuray_tpu_torch import check_trajectory_escalation as TE
+    from neuray_tpu_torch.utils.params import load_params_npz
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools = Path(__file__).resolve().parent / "tools"
+    counted = []
+
+    # (a) the blobs
+    t0 = time.perf_counter()
+    weights = load_params_npz(str(tools / SCENE_WEIGHTS["blobs"]))
+    renderer, ref, que, gt, _, _, exact_psnr, _ = scene_exact_frame(
+        GA, R, dev, "blobs", weights)
+    counted.append(dict(GA.LAUNCHES_BY_DTYPE))
+    _, _, out, _, auto_psnr, launches = scene_auto_frame(
+        GA, R, renderer, ref, que, gt, "blobs")
+    counted.append(launches)
+    log(f"phase 19(a) blobs: auto frame GT-PSNR {auto_psnr:.3f} dB against "
+        f"the exact frame's {exact_psnr:.3f} dB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not auto_psnr >= exact_psnr - SCENE_AUTO_GT_TOL:
+        raise RuntimeError(f"blobs auto frame GT-PSNR {auto_psnr:.3f} dB is "
+                           f"more than {SCENE_AUTO_GT_TOL} dB below the exact "
+                           f"frame's {exact_psnr:.3f}")
+    del renderer, ref, que, out
+
+    # (b) the room
+    t0 = time.perf_counter()
+    weights = load_params_npz(str(tools / SCENE_WEIGHTS["room"]))
+    renderer, ref, que, gt, exact, _, exact_psnr, captured = \
+        scene_exact_frame(GA, R, dev, "room", weights, capture=True)
+    counted.append(dict(GA.LAUNCHES_BY_DTYPE))
+    room_map = R.encode_ref(renderer, ref)["feats"]
+    auto, ref_c, out, _, auto_psnr, launches = scene_auto_frame(
+        GA, R, renderer, ref, que, gt, "room")
+    counted.append(launches)
+    if out["fallback"] != "two_phase":
+        raise RuntimeError(f"room auto frame: fallback {out['fallback']}, "
+                           "expected the window audit to reject every probe "
+                           "size (two_phase)")
+    direct = R.render_frame_skip_empty(auto, ref_c, que,
+                                       SCENE_AUTO_ARGS["threshold"])
+    same = {k: bool(np.array_equal(out[k], direct[k]))
+            for k in ("pixel_colors_nr", "pixel_colors_nr_fine",
+                      "keep_mask")}
+    exact_img = exact["pixel_colors_nr_fine"][0].cpu().numpy()
+    bf16 = R.NeurayRenderer(R.RenderConfig(**{
+        **SCENE_AUTO_PROFILE, "gather_quant": "none"}))
+    bf16.load_state_dict(renderer.state_dict())
+    bf16 = bf16.to(dev).eval()
+    two_phase = {"bf16": R.render_frame_skip_empty(
+        bf16, R.encode_ref(bf16, ref), que, SCENE_AUTO_ARGS["threshold"]),
+        "bf16 + u8": direct}
+    vs_f32 = {k: psnr(f["pixel_colors_nr_fine"][0], exact_img)
+              for k, f in two_phase.items()}
+    kept = {k: f["kept_rays"] / exact_img.shape[0]
+            for k, f in two_phase.items()}
+    log(f"phase 19(b) room: auto frame equal to render_frame_skip_empty on "
+        f"the same route bit for bit {same}; GT-PSNR {auto_psnr:.3f} dB, "
+        f"the exact f32 frame's {exact_psnr:.3f} dB; the two-phase frame "
+        f"against the exact f32 frame: " + ", ".join(
+            f"{k} {v:.3f} dB (kept {kept[k]:.4f})" for k, v in vs_f32.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    if not all(same.values()):
+        raise RuntimeError(f"room auto frame differs from "
+                           f"render_frame_skip_empty: {same}")
+    if not all(v >= BF16_PSNR_FLOOR for v in vs_f32.values()):
+        raise RuntimeError(f"room two-phase frames against f32 {vs_f32} < "
+                           f"{BF16_PSNR_FLOOR} dB")
+    del renderer, auto, bf16, ref, ref_c, que, out, direct, two_phase, exact
+
+    # (c) the pan trajectory, its first 64-ch map gather kept
+    t0 = time.perf_counter()
+    gather, pan = R.interpolate_feature_map, []
+
+    def capture_first(feats, *args):
+        if feats.shape[-1] == 64 and not pan:
+            pan.append((feats, *(a.detach().clone() for a in args[:2]),
+                        *args[2:]))
+        return gather(feats, *args)
+
+    GA.reset_launches()
+    R.interpolate_feature_map = capture_first
+    try:
+        rows, verdict = TE.run(TE.parse_args([]), dev, log=lambda *a, **k:
+                               log(*a))
+    finally:
+        R.interpolate_feature_map = gather
+    counted.append(dict(GA.LAUNCHES_BY_DTYPE))
+    first = verdict["first_thin_frame"]
+    base = rows[0]["accepted_psn"]
+    before = all(r["fallback"] is None and r["accepted_psn"] is not None
+                 and r["accepted_psn"] <= base for r in rows[:first or 0])
+    after = first is not None and any(
+        r["fallback"] or (r["accepted_psn"] or 0) > base
+        for r in rows[first:])
+    log(f"phase 19(c) pan trajectory: rods first in the frustum at frame "
+        f"{first}, accepted {verdict['accepted_sequence']}, fallbacks "
+        f"{verdict['fallbacks']}; no larger probe before the rods "
+        f"{before}, escalated at or after them {after} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not (before and after):
+        raise RuntimeError(f"pan trajectory: {verdict}")
+
+    # (d) the trainer
+    t0 = time.perf_counter()
+    train_fwd, train_bwd = scene_trainer(GA, dev, work)
+    log(f"phase 19(d): {time.perf_counter() - t0:.1f} s")
+    counted.append(train_fwd)
+
+    # the real-coordinate gathers
+    fh, fw = room_map.shape[1:3]
+    points, mask = captured[0]
+    pix = GA.feature_pixel_coords(points, H, W, fh, fw, False)
+    what = "room exact frame, first chunk, coarse pass"
+    rows = [kernel_row(GA, what, "f32", room_map, "map pixels",
+                       (GA.gather_bilinear_border, room_map, pix),
+                       (GA.gather_bilinear_border_ref, room_map, pix), pix,
+                       False, grid_sample_fn(room_map, pix))]
+    args = (room_map, points, mask, H, W, None)
+    rows.append(kernel_row(GA, what, "f32", room_map, "fused",
+                           (GA.gather_feature_map, *args),
+                           (GA.gather_feature_map_ref, *args), pix, True,
+                           None))
+    feats, points, mask, h, w, dq = pan[0]
+    pix = GA.feature_pixel_coords(points, h, w, *feats.shape[1:3], False)
+    args = (feats, points, mask, h, w, dq)
+    rows.append(kernel_row(GA, "pan frame 0, first chunk's 64-ch gather",
+                           "u8", feats, "fused",
+                           (GA.gather_feature_map, *args),
+                           (GA.gather_feature_map_ref, *args), pix, True,
+                           None))
+    return counted, train_bwd, rows
+
+
 def load_gather(root):
     """``neuray_tpu_torch/ops/gather.py`` of the checkout at root, as a
     module of its own (it builds its kernel under root/build)."""
@@ -4614,12 +5148,17 @@ def main():
             "bench": bench_frame["encode"] + bench_frame["render"],
             "gen": gen_step_s, "ft": ft_step_s})
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scene_launches, scene_backward, scene_rows = scenes_phase(
+        GA, R, dev, work / "scenes")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
     counted += [fast_launches, db_launches, ref_launches, dr_launches,
-                mg_launches]
-    kernel_stats["f32"]["max_abs_err"] = max(
-        [kernel_stats["f32"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in cv_rows + gen_rows + fast_rows
-           + db_rows])
+                mg_launches, *scene_launches]
+    for name in ("f32", "u8"):
+        kernel_stats[name]["max_abs_err"] = max(
+            [kernel_stats[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in cv_rows + gen_rows + fast_rows
+               + db_rows + scene_rows if r["dtype"] == name])
     backward_stats["max_abs_err"] = max(
         [backward_stats["max_abs_err"], ft_fine["max_abs_err"],
          cv_ft_fine["max_abs_err"]]
@@ -4636,7 +5175,8 @@ def main():
         "source": source, "replaces": "neuray_tpu/ops/interpolate.py:115",
         "launches": (backward_launches + ft_backward + cv_ft_backward
                      + gen_backward + cv_cli_backward + fast_backward
-                     + db_backward + mg_launches["backward"]),
+                     + db_backward + mg_launches["backward"]
+                     + scene_backward),
         **backward_stats,
         "real_ft_fine": {"shape": ft_fine["shape"],
                          "points": ft_fine["points"],

@@ -1,8 +1,10 @@
 """Cross-view aggregation MLP + along-ray attention (port of
-``neuray_tpu/models/ibrnet.py``, ``IBRNetWithNeuRay(view_major=True)``).
+``neuray_tpu/models/ibrnet.py``, ``IBRNetWithNeuRay(view_major=True)``,
+and the plain ``IBRNet``, which no config uses).
 
-Inputs stay view-major, [rfn, b, dn, f], the layout the projection and
-gather stage produces; views are reduced over dim 0.
+``IBRNetWithNeuRay``'s inputs stay view-major, [rfn, b, dn, f], the
+layout the projection and gather stage produces; views are reduced over
+dim 0. ``IBRNet`` takes the JAX module's [b, dn, rfn, f].
 
 With a compute ``dtype`` (bf16) the dense layers run in it and the rest
 follows the JAX package's type promotion op for op: a bf16 tensor with
@@ -216,4 +218,68 @@ class IBRNetWithNeuRay(nn.Module):
         x = x.masked_fill(mask == 0, -1e9)
         blending_weights = torch.softmax(x, dim=0)
         rgb_out = (rgb_in * blending_weights).sum(dim=0)       # b,dn,3
+        return torch.cat([rgb_out, sigma_out], dim=-1)
+
+
+class IBRNet(nn.Module):
+    """The plain IBRNet aggregator, without NeuRay's visibility weighting
+    (port of ``neuray_tpu/models/ibrnet.py: IBRNet``; the reference's
+    unused alternative, kept for ablations). Inputs in the JAX module's
+    layout, views on dim 2:
+      rgb_feat [b, dn, rfn, 3 + in_feat_ch], ray_diff [b, dn, rfn, 4],
+      mask [b, dn, rfn, 1].
+    Output: [b, dn, 4] (rgb, sigma). Its ray attention keeps the
+    reference's mask quirk (``MultiHeadAttention.forward``)."""
+
+    def __init__(self, in_feat_ch: int = 32, n_samples: int = 64,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        c = in_feat_ch + 3
+        self.n_samples = n_samples
+        self.ray_dir_fc = _Seq(4, (16, c), "elu", dtype)
+        self.base_fc = _Seq(3 * c, (64, 32), "elu", dtype)
+        self.vis_fc = _Seq(32, (32, 33), "elu", dtype)
+        self.vis_fc2 = _Seq(32, (32, 1), "sigmoid", dtype)
+        self.geometry_fc = _Seq(32 * 2 + 1, (64, 16), "elu", dtype)
+        self.ray_attention = MultiHeadAttention(4, 16, 4, 4, dtype)
+        self.out_geometry_fc = _Seq(16, (16, 1), "relu", dtype)
+        self.rgb_fc = _Seq(32 + 1 + 4, (16, 8, 1), "none", dtype)
+
+    def forward(self, rgb_feat, ray_diff, mask):
+        num_views = rgb_feat.shape[2]
+        rgb_in = rgb_feat[..., :3]
+        rgb_feat = rgb_feat + self.ray_dir_fc(ray_diff)
+        weight = mask / (mask.sum(dim=2, keepdim=True) + 1e-8)
+
+        mean, var = fused_mean_variance(rgb_feat, weight, 2)
+        globalfeat = torch.cat([mean, var], dim=-1)
+        x = torch.cat([globalfeat.expand(-1, -1, num_views, -1), rgb_feat],
+                      dim=-1)
+        x = self.base_fc(x)
+
+        x_vis = self.vis_fc(x * weight)
+        x_res, vis = x_vis[..., :-1], x_vis[..., -1:]
+        vis = torch.sigmoid(vis) * mask
+        x = x + x_res
+        vis = self.vis_fc2(x * vis) * mask
+        weight = vis / (vis.sum(dim=2, keepdim=True) + 1e-8)
+
+        mean, var = fused_mean_variance(x, weight, 2)
+        globalfeat = torch.cat([mean[:, :, 0], var[:, :, 0],
+                                weight.mean(dim=2)], -1)
+        globalfeat = self.geometry_fc(globalfeat)              # b,dn,16
+        num_valid_obs = mask.sum(dim=2)                        # b,dn,1
+        table = sinusoid_pos_encoding(16, self.n_samples)
+        globalfeat = globalfeat + torch.from_numpy(
+            table[:, :globalfeat.shape[1]]).to(globalfeat.device)
+        attn_mask = (num_valid_obs > 1).to(globalfeat.dtype)
+        globalfeat = self.ray_attention(globalfeat, mask=attn_mask)
+        sigma = self.out_geometry_fc(globalfeat)
+        sigma_out = torch.where(num_valid_obs < 1,
+                                torch.zeros_like(sigma), sigma)
+
+        x = self.rgb_fc(torch.cat([x, vis, ray_diff], dim=-1))
+        x = x.masked_fill(mask == 0, -1e9)
+        blending_weights = torch.softmax(x, dim=2)
+        rgb_out = (rgb_in * blending_weights).sum(dim=2)       # b,dn,3
         return torch.cat([rgb_out, sigma_out], dim=-1)

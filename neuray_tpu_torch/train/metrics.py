@@ -31,6 +31,15 @@ def compute_psnr(img_gt: np.ndarray, img_pr: np.ndarray) -> float:
     return float(10 * np.log10(255 * 255 / mse))
 
 
+def unit_psnr(a, b) -> float:
+    """PSNR of float images in [0, 1], in f64, the mean squared error
+    floored at 1e-12: the quality tools' reading of a frame against
+    another frame or the ground truth."""
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return 10 * np.log10(1.0 / max(mse, 1e-12))
+
+
 def compute_ssim(img_gt: np.ndarray, img_pr: np.ndarray,
                  win_size: int = 11, data_range: float = 255.0) -> float:
     """SSIM with uniform windows (skimage's defaults at win_size 11,

@@ -1,7 +1,7 @@
 """Weights: the flat-npz format of ``neuray_tpu/utils/params_io.py``
-read with numpy alone, and the bridge from the flax parameter tree to a
-PyTorch ``state_dict`` and back (``torch_to_flax``: port gradients and
-checkpoints as flax trees).
+read and written with numpy alone, and the bridge from the flax
+parameter tree to a PyTorch ``state_dict`` and back (``torch_to_flax``:
+port gradients and checkpoints as flax trees).
 
 The port names its submodules after the flax tree
 (``image_encoder.layer1.block0.conv1``...), so each leaf maps by one
@@ -43,6 +43,21 @@ def load_params_npz(path: str, dtype=np.float32) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = arr
     return tree
+
+
+def save_params_npz(path: str, tree: Dict[str, Any],
+                    dtype=np.float16) -> None:
+    """Write a nested-dict tree as the flat npz ``load_params_npz`` (and
+    the JAX package's) reads: one entry a leaf keyed by its '/'-joined
+    path, f32 leaves stored as ``dtype`` (f16, as the JAX package's
+    ``save_params_npz`` stores them)."""
+    flat = {}
+    for keys, arr in _leaves(tree):
+        arr = np.asarray(arr)
+        if dtype is not None and arr.dtype == np.float32:
+            arr = arr.astype(dtype)
+        flat["/".join(keys)] = arr
+    np.savez_compressed(path, **flat)
 
 
 def _leaves(tree: Dict[str, Any], prefix: tuple = ()):
