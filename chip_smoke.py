@@ -116,10 +116,11 @@ Phases, one line each, any failure raising (exit code != 0):
      on the frames (its PSNR that of the files, GT-PSNR >= 18 dB, the FT
      frame's >= 24 dB, eval s);
      then ``neuray_tpu_torch/selfcheck.py``'s render and FT self-checks;
-     then the first exact frame by ``python -m neuray_tpu_torch.render``
-     in a fresh process, where PyTorch's default TF32 flags hold until
-     the CLI's ``main`` turns them off: its JPEGs equal this process's
-     byte for byte, both processes' flags printed (``cli_fresh_process``).
+     and the first exact frame by ``python -m neuray_tpu_torch.render``
+     in a fresh process (run beside phase 20), where PyTorch's default
+     TF32 flags hold until the CLI's ``main`` turns them off: its JPEGs
+     equal this process's byte for byte, both processes' flags printed
+     (``cli_fresh_process``).
  15. the shipped configs no earlier phase runs: (a) ``configs/train/gen/
      neuray_gen_depth_train_fast.yaml`` (the diff on the half grid)
      through the CLI on phase 12's data, cut as phase 12 at 20 steps
@@ -154,9 +155,9 @@ Phases, one line each, any failure raising (exit code != 0):
      ray-sharded steps of phase 9's on its scene, the first step's
      averaged gradients within 1e-5 of each leaf's norm of the
      one-process step on the same inputs, the parameters the same on
-     every rank; (e) the render CLI under torchrun, its JPEGs equal to
-     phase 14's, and the training CLI under torchrun beside the
-     one-process CLI on the same finetuning config and at lr 0: step 1's
+     every rank; (e), beside phase 20, the render CLI under torchrun, its
+     JPEGs equal to phase 14's, and the training CLI under torchrun beside
+     the one-process CLI on the same finetuning config and at lr 0: step 1's
      logged losses equal, each later step's within
      ``MG_CLI_UPDATE_SHARE`` of the update's effect. Each rank's gather
      launches, times and peak memory printed beside how the ranks sit on
@@ -177,12 +178,25 @@ Phases, one line each, any failure raising (exit code != 0):
      trajectory (``python -m neuray_tpu_torch.check_trajectory_escalation``
      at its defaults, 400x400, 7 frames): no larger probe accepted before
      the rods enter the frustum, an escalation or fallback at or after
-     it; (d) the main of ``python -m neuray_tpu_torch.make_bench_weights
-     --scene blobs`` in a fresh process, 40 steps at 400 px: steps/s, the
+     it; (d), beside phase 20, the main of ``python -m
+     neuray_tpu_torch.make_bench_weights --scene blobs`` in a fresh
+     process, 40 steps at 400 px: steps/s (on a card shared with phase
+     20 and phase 18(e)'s CLIs), the
      loss, 5 forward and 2 backward gather launches a step, its npz read
      back in that process rendering a chunk equal to the trained model's,
      one step's gradients card vs CPU; then the room frame's and a pan
      frame's real-coordinate gathers timed as forward rows.
+ 20. the diagnostic and profiling tools (``tools_phase``) at their card
+     defaults on the bench route but for depth (``TOOLS``), in
+     process, each tool's gather launches held to its chunk counts:
+     ``diag_probe_score``'s scores bit-equal to ``probe_rays`` and
+     ``render_coarse_rays`` on its encode; ``profile_encode``'s staged
+     maps bit-equal to ``encode_ref``'s, then the tool in a fresh process;
+     ``profile_skip_phases``' two-phase keep set equal to
+     ``render_frame_skip_empty``'s and its ``--focus`` frame bit-equal to
+     ``render_frame_probe_focus``'s; ``profile_stages``' first chunk of each
+     stage card vs CPU (its gathers by ``hold`` against their plain
+     versions, its bf16 modules by the lossy-mode rule, the rest 1e-4).
 Phase 3 also holds the gather's backward kernel (the scatter-add into an
 f32 map) to its plain twin at both training steps' shapes
 (``BACKWARD_SHAPES``), beside ``grid_sampler_2d_backward``, and its
@@ -3385,7 +3399,6 @@ def cli_phase(GA, R, dev, work, weights):
             if not min(want) >= CLI_GEN_PSNR_FLOOR:
                 raise RuntimeError(f"CLI {what} GT-PSNR {min(want):.3f} dB "
                                    f"< {CLI_GEN_PSNR_FLOOR}")
-        cli_fresh_process(work, weights, render_dir)
     finally:
         restore()
         os.chdir(cwd)
@@ -3597,13 +3610,12 @@ def ft_db_phase(GA, R, dev, work, weights, ft_step_s, parent=None):
     return total, backward, fwd, bwd
 
 
-def cli_fresh_process(work, weights, render_dir):
-    """Phase 14, the TF32 repair: the first exact eval view rendered by
-    ``python -m neuray_tpu_torch.render`` in a fresh process (PyTorch's
-    default flags, which the CLI's ``main`` turns off), under its own
-    working directory with the same checkpoint and scene; its JPEGs equal
-    byte for byte to the frame phase 14 rendered in this process. Prints
-    both processes' TF32 flags."""
+def start_cli_fresh_process(work, weights):
+    """Start phase 14's TF32 check (``cli_fresh_process``): the first exact
+    eval view rendered by ``python -m neuray_tpu_torch.render`` in a fresh
+    process (PyTorch's default flags, which the CLI's ``main`` turns off),
+    under its own working directory with the same checkpoint and scene.
+    Returns the job (``start_process``)."""
     repo = Path(__file__).resolve().parent
     fresh = work / "cli_fresh"
     shutil.rmtree(fresh, ignore_errors=True)
@@ -3622,27 +3634,32 @@ def cli_fresh_process(work, weights, render_dir):
             "--re", "1"]
     env = {**os.environ, "NEURAY_DATA_ROOT": str(work / "ft_data"),
            "PYTHONPATH": str(repo)}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=fresh,
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
-    if proc.returncode:
+    return start_process([sys.executable, "-c", code, *args], fresh,
+                         "cli", cwd=fresh, env=env)
+
+
+def cli_fresh_process(work, job):
+    """Phase 14, the TF32 repair, finished: the fresh process's JPEGs
+    (``start_cli_fresh_process``) equal byte for byte to the frame phase
+    14 rendered in this process. Prints both processes' TF32 flags."""
+    code, out, err, seconds = finish_process(job)
+    if code:
         raise RuntimeError(f"the render CLI in a fresh process failed: "
-                           f"{proc.stderr[-3000:]}")
-    lines = [x for x in proc.stdout.splitlines() if x.startswith("flags")]
+                           f"{err[-3000:]}")
+    lines = [x for x in out.splitlines() if x.startswith("flags")]
     here = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    theirs = fresh / "data" / "render" / render_dir.name / \
-        "neuray_gen_depth-eval"
+    render_dir = Path("data/render") / CLI_DATABASE.replace("/", "_")
+    theirs = work / "cli_fresh" / render_dir / "neuray_gen_depth-eval"
     ours = work / "cli" / render_dir / "neuray_gen_depth-eval"
     for name in ("0-nr.jpg", "0-nr_fine.jpg"):
         if (theirs / name).read_bytes() != (ours / name).read_bytes():
             raise RuntimeError(f"the fresh process's {name} differs from "
                                "this process's")
-    log(f"CLI in a fresh process ({time.perf_counter() - t0:.1f} s): "
-        f"{'; '.join(lines)}; this process's flags (matmul, cudnn) {here}; "
-        f"its 0-nr.jpg and 0-nr_fine.jpg equal this process's byte for "
-        f"byte")
+    log(f"phase 14's CLI in a fresh process (done in {seconds:.1f} s on a "
+        f"card shared with phase 20, 19(d) and 18(e)): {'; '.join(lines)}; this process's flags (matmul, "
+        f"cudnn) {here}; its 0-nr.jpg and 0-nr_fine.jpg equal this "
+        f"process's byte for byte")
     if lines != ["flags before main (False, True)",
                  "flags after main (False, False)"]:
         raise RuntimeError(f"the fresh process's TF32 flags: {lines}")
@@ -4170,41 +4187,28 @@ def mg_torchrun(args):
             "--nproc_per_node", str(MG_RANKS), "-m", *args]
 
 
-def mg_processes(cmds, cwd, env, timeout=420):
-    """The commands (what -> argv) run side by side in cwd, each one's
-    output to ``cwd/<what>.log``; the seconds until each ended. Raises
-    with the end of a failing one's output; kills every one still
-    running at the timeout or after a failure."""
-    t0 = time.perf_counter()
-    logs = {what: open(Path(cwd) / f"{what.replace(' ', '_')}.log", "w")
-            for what in cmds}
-    procs = {what: subprocess.Popen(cmd, cwd=cwd, env=env, text=True,
-                                    stdout=logs[what],
-                                    stderr=subprocess.STDOUT)
-             for what, cmd in cmds.items()}
+def mg_wait(jobs, timeout=420):
+    """Wait for ``start_mg_cli``'s processes, against one deadline
+    ``timeout`` s after the first started; the seconds from each one's
+    start to its end. Raises with the end of a failing one's output, or
+    naming one still running at the deadline; stops them all either
+    way."""
+    deadline = min(j.t0 for j in jobs.values()) + timeout
     seconds = {}
     try:
-        while len(seconds) < len(procs):
-            if time.perf_counter() - t0 > timeout:
-                left = sorted(set(procs) - set(seconds))
-                raise RuntimeError(f"phase 18: {left} still running after "
-                                   f"{timeout} s")
-            for what, proc in procs.items():
-                if what not in seconds and proc.poll() is not None:
-                    seconds[what] = time.perf_counter() - t0
-                    if proc.returncode != 0:
-                        logs[what].flush()
-                        out = Path(logs[what].name).read_text()
-                        raise RuntimeError(f"phase 18 {what} failed "
-                                           f"({proc.returncode}):\n"
-                                           f"{out[-5000:]}")
-            time.sleep(0.2)
+        for what, job in jobs.items():
+            try:
+                code, out, err, seconds[what] = finish_process(
+                    job, max(deadline - time.perf_counter(), 0))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"phase 18: {what} still running after "
+                                   f"{timeout} s") from None
+            if code != 0:
+                raise RuntimeError(f"phase 18 {what} failed ({code}):\n"
+                                   f"{out[-2500:]}\n{err[-2500:]}")
     finally:
-        for what, proc in procs.items():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            logs[what].close()
+        for job in jobs.values():
+            stop_process(job)
     return seconds
 
 
@@ -4250,14 +4254,10 @@ def check_cli_losses(logs, steps, what):
     return out
 
 
-def mg_cli(work, weights, smi):
-    """(e) Both CLIs under torchrun on phase 14's scene, side by side
-    with two one-process training CLIs: the render CLI's first exact eval
-    view, its JPEGs against phase 14's one-process ones byte for byte; the
-    training CLI finetuning phase 9's config for MG_CLI_STEPS steps on
-    MG_RANKS ranks beside the one-process CLI on the same config and the
-    one-process CLI at lr 0: the same files, and each step's logged
-    losses held by ``check_cli_losses``."""
+def start_mg_cli(work, weights):
+    """Start phase 18(e) (``mg_cli``): both CLIs under torchrun on phase
+    14's scene, side by side with two one-process training CLIs (they
+    run beside phase 20). Returns {what: its job} (``start_process``)."""
     from neuray_tpu_torch.selfcheck import write_cfg
     repo = Path(__file__).resolve().parent
     cli = work / "mg_cli"
@@ -4266,7 +4266,6 @@ def mg_cli(work, weights, smi):
     write_gen_checkpoint(weights, cli / "data" / "model", GEN_PROFILE)
     env = {**os.environ, "NEURAY_DATA_ROOT": str(work / "ft_data"),
            "PYTHONPATH": str(repo)}
-    label = mg_cards_label()
     runs = {}
     for kind in ("two", "one", "zero"):
         root = cli / kind
@@ -4279,7 +4278,7 @@ def mg_cli(work, weights, smi):
             "lr_cfg": dict(lr, lr_init=0.0) if kind == "zero" else lr})
     one_process = [sys.executable, "-m", "neuray_tpu_torch.run_training",
                    "--cfg"]
-    s = mg_processes({
+    cmds = {
         "render CLI": mg_torchrun([
             "neuray_tpu_torch.render", "--database_name", CLI_DATABASE,
             "--cfg", str(repo / "configs" / "gen" / "neuray_gen_depth.yaml"),
@@ -4287,8 +4286,22 @@ def mg_cli(work, weights, smi):
         "training CLI": mg_torchrun(["neuray_tpu_torch.run_training",
                                      "--cfg", runs["two"]]),
         "one-process training CLI": one_process + [runs["one"]],
-        "one-process training CLI at lr 0": one_process + [runs["zero"]]},
-        cli, env)
+        "one-process training CLI at lr 0": one_process + [runs["zero"]]}
+    return {what: start_process(cmd, cli, what.replace(" ", "_"), cwd=cli,
+                                env=env) for what, cmd in cmds.items()}
+
+
+def mg_cli(work, jobs, smi):
+    """Phase 18(e), finished (``start_mg_cli``): the render CLI's first
+    exact eval view under torchrun, its JPEGs against phase 14's
+    one-process ones byte for byte; the training CLI finetuning phase 9's
+    config for MG_CLI_STEPS steps on MG_RANKS ranks beside the
+    one-process CLI on the same config and the one-process CLI at lr 0:
+    the same files, and each step's logged losses held by
+    ``check_cli_losses``."""
+    s = mg_wait(jobs)
+    cli = work / "mg_cli"
+    label = mg_cards_label()
     rel = Path("data/render") / CLI_DATABASE.replace("/", "_")
     names = [f"neuray_gen_depth-eval/0-{k}.jpg" for k in ("nr", "nr_fine")]
     for name in names + ["gt/0.jpg"]:
@@ -4297,11 +4310,13 @@ def mg_cli(work, weights, smi):
             raise RuntimeError(f"phase 18 render CLI: {name} differs from "
                                "phase 14's")
     log(f"phase 18 render CLI under torchrun ({label}; side by side with "
-        f"the training CLIs): the first exact eval view {H}x{W} in "
-        f"{s['render CLI']:.1f} s (2 process starts in); its JPEGs equal "
+        f"the training CLIs and phase 20, a shared card's time): the first "
+        f"exact eval view {H}x{W} in {s['render CLI']:.1f} s (2 process "
+        f"starts in); its "
+        f"JPEGs equal "
         f"phase 14's byte for byte ({smi})")
     s_two, s_one = s["training CLI"], s["one-process training CLI"]
-    dirs = {k: cli / k / FT_PROFILE["name"] for k in runs}
+    dirs = {k: cli / k / FT_PROFILE["name"] for k in ("two", "one", "zero")}
     files = {k: sorted(os.listdir(d)) for k, d in dirs.items()}
     if files["two"] != files["one"]:
         raise RuntimeError(f"phase 18 training CLI wrote {files['two']}, "
@@ -4320,7 +4335,8 @@ def mg_cli(work, weights, smi):
     log(f"phase 18 training CLI under torchrun ({label}): {MG_CLI_STEPS} "
         f"finetuning steps of {FT_PROFILE['name']} ray-sharded in {s_two:.1f}"
         f" s, the one-process CLI in {s_one:.1f} s (side by side on the "
-        f"card with the render CLI and the one-process CLI at lr 0, each "
+        f"card with the render CLI, the one-process CLI at lr 0 and phase "
+        f"20: a shared card's times, not the scaling; each "
         f"with its process starts, FtTrainer build and ray_feats init); "
         f"files {files['two']} alike; step 1's losses equal to train.txt's "
         f"5 decimals (bound {MG_CLI_LOSS_BOUND:g}); loss_total sharded / "
@@ -4344,9 +4360,10 @@ def multi_gpu_phase(GA, dev, work, weights, exact_out, bench_frame, smi,
     step's averaged gradients against the mean of each rank's one-process
     gradient; (d) ray-sharded steps of phase 9's config on its scene, the
     first step's against the one-process step on rank 0; parameters the
-    same on every rank. Then (e) both CLIs under torchrun (``mg_cli``).
-    Times are labelled with how the ranks sit on the cards, and each
-    printed beside the one-process time of its phase in this run (``one``:
+    same on every rank. (e), both CLIs under torchrun (``start_mg_cli``,
+    ``mg_cli``), runs beside phase 20. Times are labelled with how the
+    ranks sit on the cards, and each printed beside the one-process time
+    of its phase in this run (``one``:
     phase 4's ray loop s, phase 7's encode + render s, phases 12's and
     9's median step s): the scaling. Returns the ranks' gather launches
     (forward by instantiation, and backward)."""
@@ -4471,7 +4488,6 @@ def multi_gpu_phase(GA, dev, work, weights, exact_out, bench_frame, smi,
             if not (first["f32"] > 0 and first["backward"] > 0):
                 raise RuntimeError(f"phase 18 {what} rank {r['rank']}: "
                                    f"gather launches {first}")
-    mg_cli(work, weights, smi)
     launches = {"f32": 0, "bf16": 0, "u8": 0, "backward": 0}
     for r in reps:
         for part in ("exact", "bench"):
@@ -4718,9 +4734,23 @@ print(json.dumps({{"rays": {CHUNK}, "rows_from": size * 3 // 8,
 """
 
 
-def scene_trainer(GA, dev, work):
+def start_scene_trainer(work):
+    """Start phase 19(d)'s fresh process (``scene_trainer``). Returns the
+    job (``start_process``)."""
+    work.mkdir(parents=True, exist_ok=True)
+    out_npz = work / "bench_weights_blobs.npz"
+    out_npz.unlink(missing_ok=True)
+    return start_process(
+        [sys.executable, "-c", TRAINER_ROUND_TRIP, "--scene", "blobs",
+         "--steps", str(TRAIN_SCENE_STEPS), "--out", str(out_npz)], work,
+        "trainer", cwd=Path(__file__).resolve().parent)
+
+
+def scene_trainer(GA, dev, work, job):
     """Phase 19(d): the bench-weights trainer's ``main`` with ``--scene
-    blobs`` in a fresh process (``TRAINER_ROUND_TRIP``), cut to
+    blobs`` in a fresh process (``TRAINER_ROUND_TRIP``, started by
+    ``start_scene_trainer``; it runs beside phase 20, so its steps/s are
+    those of a shared card), cut to
     TRAIN_SCENE_STEPS steps at 400 px: steps/s and the loss printed, its
     gather launches held to 5 forward (the diff, then rgb and the 64-ch map
     in each pass) and 2 backward a step; its npz round trip held bit for
@@ -4735,26 +4765,20 @@ def scene_trainer(GA, dev, work):
     from neuray_tpu_torch import make_bench_weights as MB
     from neuray_tpu_torch.train.losses import render_loss
     from neuray_tpu_torch.utils.params import load_params_npz
-    work.mkdir(parents=True, exist_ok=True)
-    out_npz = work / "bench_weights_blobs.npz"
-    out_npz.unlink(missing_ok=True)
-    cmd = [sys.executable, "-c", TRAINER_ROUND_TRIP, "--scene", "blobs",
-           "--steps", str(TRAIN_SCENE_STEPS), "--out", str(out_npz)]
-    t0 = time.perf_counter()
-    run = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                         capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise RuntimeError(f"make_bench_weights exited {run.returncode}: "
-                           f"{run.stderr[-3000:]}")
-    lines = run.stdout.strip().splitlines()
+    code, out, err, wall = finish_process(job)
+    if code != 0:
+        raise RuntimeError(f"make_bench_weights exited {code}: "
+                           f"{err[-3000:]}")
+    lines = out.strip().splitlines()
     for line in lines[:-2]:
         log(f"make_bench_weights: {line}")
     record, round_trip = map(json.loads, lines[-2:])
     steps = record["steps"]
-    log(f"make_bench_weights --scene blobs in a fresh process: {wall:.1f} s "
-        f"in all, {steps} steps at {record['size']} px in "
-        f"{record['seconds']:.2f} s = {record['steps_per_s']:.2f} steps/s, "
+    log(f"make_bench_weights --scene blobs in a fresh process (on a card "
+        f"shared with phase 20 and phase 18(e)'s CLIs): done in {wall:.1f} s"
+        f", {steps} steps at {record['size']} px in "
+        f"{record['seconds']:.2f} s = {record['steps_per_s']:.2f} steps/s "
+        f"(shared card), "
         f"loss {record['first_loss']:.5f} -> {record['last_loss']:.5f}, "
         f"gather launches {record['gather_launches']} forward, "
         f"{record['backward_launches']} backward")
@@ -4774,7 +4798,7 @@ def scene_trainer(GA, dev, work):
     if not all(round_trip["equal"].values()):
         raise RuntimeError(f"the npz's render differs from the model's: "
                            f"{round_trip['equal']}")
-    tree = load_params_npz(str(out_npz))
+    tree = load_params_npz(str(work / "bench_weights_blobs.npz"))
 
     # one step's gradients from the written weights
     g_flags = argparse.Namespace(size=SCENE_GRAD["size"], init="depth",
@@ -4806,11 +4830,11 @@ def scenes_phase(GA, R, dev, work, parent=None):
     against the exact f32 frame, each >= BF16_PSNR_FLOOR. (c) the pan
     trajectory (``check_trajectory_escalation``, its defaults): no frame
     before the rods enter accepts a larger probe than frame 0, and the run
-    escalates or falls back at or after that frame. (d) the bench-weights
-    trainer (``scene_trainer``). Then the real-coordinate gathers of the
-    room frame's first chunk and of a pan frame timed as forward rows
-    (``kernel_row``). Returns (the gather launches of its counted runs by
-    instantiation, the backward launches, the forward rows)."""
+    escalates or falls back at or after that frame. Then the
+    real-coordinate gathers of the room frame's first chunk and of a pan
+    frame timed as forward rows (``kernel_row``). (d), the bench-weights
+    trainer (``scene_trainer``), runs beside phase 20. Returns (the gather
+    launches of its counted runs by instantiation, the forward rows)."""
     from neuray_tpu_torch import check_trajectory_escalation as TE
     from neuray_tpu_torch.utils.params import load_params_npz
     gc.collect()
@@ -4914,12 +4938,6 @@ def scenes_phase(GA, R, dev, work, parent=None):
     if not (before and after):
         raise RuntimeError(f"pan trajectory: {verdict}")
 
-    # (d) the trainer
-    t0 = time.perf_counter()
-    train_fwd, train_bwd = scene_trainer(GA, dev, work)
-    log(f"phase 19(d): {time.perf_counter() - t0:.1f} s")
-    counted.append(train_fwd)
-
     # the real-coordinate gathers
     fh, fw = room_map.shape[1:3]
     points, mask = captured[0]
@@ -4942,7 +4960,384 @@ def scenes_phase(GA, R, dev, work, parent=None):
                            (GA.gather_feature_map, *args),
                            (GA.gather_feature_map_ref, *args), pix, True,
                            None))
-    return counted, train_bwd, rows
+    return counted, rows
+
+
+# ---------------- processes beside the main path ----------------
+
+def start_process(cmd, out_dir, name, **kw):
+    """Start cmd as a process of its own, its stdout and stderr written to
+    ``out_dir/<name>.out`` and ``.err`` (a pipe read only at the end
+    would fill and stall it), and a thread that notes when it ends.
+    Returns the job for ``finish_process``."""
+    import threading
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = [open(out_dir / f"{name}.{k}", "w") for k in ("out", "err")]
+    try:
+        proc = subprocess.Popen(cmd, stdout=files[0], stderr=files[1],
+                                text=True, **kw)
+    except BaseException:
+        for f in files:
+            f.close()
+        raise
+    job = SimpleNamespace(proc=proc, files=files, t0=time.perf_counter(),
+                          t1=None)
+
+    def watch():
+        proc.wait()
+        job.t1 = time.perf_counter()
+
+    job.watcher = threading.Thread(target=watch, daemon=True)
+    job.watcher.start()
+    return job
+
+
+def stop_process(job):
+    """Kill a started process that still runs, and close its files."""
+    if job.proc.poll() is None:
+        job.proc.kill()
+        job.proc.wait()
+    for f in job.files:
+        f.close()
+
+
+def finish_process(job, timeout=600):
+    """Wait for a started process (killed at the timeout). Returns (its
+    exit code, stdout, stderr, seconds from its start to its end)."""
+    try:
+        job.proc.wait(timeout=timeout)
+    finally:
+        stop_process(job)
+    job.watcher.join()
+    out, err = (Path(f.name).read_text() for f in job.files)
+    return job.proc.returncode, out, err, job.t1 - job.t0
+
+
+# ---------------- phase 20: the diagnostic and profiling tools -------------
+
+# the tools in phase 20: their card flags but for depth, and the depth
+# set on the parsed namespace (``tool_flags``): one timed call or frame
+# each; the skip profiler without its warm-up frame (phases 4-19 warmed
+# every kernel of its frames) and, in two-phase mode, without its
+# profiled frame (twice a frame's time; the bench default's is kept); 4
+# chunks a pass of the stage profiler, one timed pass
+TOOLS = {"encode": (["--iters", "1"], {}),
+         "skip": (["--iters", "1"], {"warmup": 0, "profile_frames": 0}),
+         "focus": (["--focus", "--iters", "1"], {"warmup": 0}),
+         "stages": (["--k", "4"], {"iters": 1})}
+
+
+def tool_flags(module, name):
+    """The tool's parsed flags with phase 20's depth (TOOLS)."""
+    argv, depth = TOOLS[name]
+    flags = module.parse_args(argv)
+    vars(flags).update(depth)
+    return flags
+
+
+# profile_stages' card outputs against the CPU's: each gather by ``hold``
+# (its name there), the bf16 modules by ``lossy_held``, the rest in f32
+# (the projection's coordinates beside their rounding, ``hold_projection``)
+STAGE_HOLD = {"gather": "f32", "fused": "bf16", "fused_u8": "u8 fused"}
+STAGE_TOL = 1e-4
+# the f32 ulps of its terms' summed magnitude by which a camera-space
+# coordinate of the projection stage may stray on either device
+# (``projection_rounding``)
+PROJ_ULPS = 16
+
+
+def lossy_held(name, card, cpu_bf16, cpu_f32):
+    """The lossy-mode rule of tests/test_torch_port_bf16.py with the CPU's
+    modules as the references: the card's bf16 output against the CPU's
+    f32 twin within 1.5x of the CPU bf16 output's own error against it,
+    in mean and max, and the card against the CPU's bf16 within 2x.
+    Returns the card-vs-CPU-bf16 max."""
+    c, b, f = (x.detach().cpu().double().numpy()
+               for x in (card, cpu_bf16, cpu_f32))
+    own, ours, d = np.abs(b - f), np.abs(c - f), np.abs(c - b)
+    log(f"  {name}: CPU bf16 vs f32 mean {own.mean():.3g} max "
+        f"{own.max():.3g}; card bf16 vs CPU f32 mean {ours.mean():.3g} max "
+        f"{ours.max():.3g}; card vs CPU bf16 mean {d.mean():.3g} max "
+        f"{d.max():.3g}")
+    if not (np.isfinite(c).all() and ours.mean() <= 1.5 * own.mean()
+            and ours.max() <= 1.5 * own.max() and d.mean() <= 2 * own.mean()
+            and d.max() <= 2 * own.max()):
+        raise RuntimeError(f"profile_stages {name}: the card's bf16 output "
+                           "fails the lossy-mode rule against the CPU's")
+    return d.max()
+
+
+def projection_rounding(poses, Ks, points):
+    """Each camera-space coordinate's f32 rounding bound [rfn, pn, 3]:
+    PROJ_ULPS f32 ulps of the sum of its terms' magnitudes (K @ pose, then
+    its dot with the homogeneous point), from which the card's and the
+    CPU's sums may each stray."""
+    krt = (Ks.double() @ poses.double()).abs()
+    p = torch.cat([points.double().abs(),
+                   torch.ones(points.shape[0], 1, dtype=torch.float64)], -1)
+    return PROJ_ULPS * 2.0 ** -24 * (krt[:, None] @ p[None, :, :, None])[
+        ..., 0]
+
+
+def hold_projection(card, cpu, size, rounding):
+    """The projection stage card vs CPU, each coordinate within
+    STAGE_TOL plus its rounding (``projection_rounding``: the division by
+    the depth turns the camera-space rounding into (dxy + |xy| dz) / |z|,
+    large near a camera plane, where the random poses put some points).
+    A point whose |depth| lies within its rounding of the projection's
+    degenerate-depth cut (1e-4: the depth is replaced by 1e-3 and the
+    point masked) may fall on either side on the two devices: such points
+    are counted and left out. The mask equal but where a coordinate lies
+    within its bound of the image's edge. Returns the max abs error off
+    the cut."""
+    dirs, pts, depth, mask = (v.cpu() for v in card)
+    d_card, d_cpu = depth[..., 0], cpu[2][..., 0]
+    dxy, dz = rounding[..., :2], rounding[..., 2]
+    cut = (d_card == 1e-3) != (d_cpu == 1e-3)
+    kept_depth = torch.where(d_cpu == 1e-3, d_card, d_cpu)
+    if not ((kept_depth.abs() - 1e-4).abs() <= dz)[cut].all():
+        raise RuntimeError("profile_stages projection: a point's depth is "
+                           "cut on one device and not on the other away "
+                           "from the cut")
+    ok = ~cut
+    pts_bound = STAGE_TOL + ((dxy + cpu[1].abs() * dz[..., None])
+                             / d_cpu.abs()[..., None]).float()
+    worst = 0.0
+    for name, a, b, bound in (("dir", dirs, cpu[0], STAGE_TOL),
+                              ("pts", pts, cpu[1], pts_bound),
+                              ("depth", depth, cpu[2],
+                               STAGE_TOL + dz[..., None].float())):
+        err = (a - b).abs()
+        worst = max(worst, err[ok].max().item())
+        if (err > bound)[ok].any():
+            i = ((err > bound) & ok[..., None]).nonzero()[0].tolist()
+            raise RuntimeError(f"profile_stages projection {name}: card vs "
+                               f"CPU at {i}: {a[tuple(i)].item()} vs "
+                               f"{b[tuple(i)].item()}")
+    flips = ((mask != cpu[3]) & ok).nonzero(as_tuple=True)
+    xy, bound = cpu[1][flips], pts_bound[flips]
+    edge = torch.tensor([-0.5, size - 0.5])
+    near_edge = (xy[..., None] - edge).abs() <= bound[..., None]
+    if not near_edge.flatten(1).any(-1).all():
+        raise RuntimeError("profile_stages projection: the card's mask "
+                           "differs from the CPU's away from the image edge")
+    log(f"  projection: card vs CPU max {worst:.3g} off the depth cut; "
+        f"points at the cut {int(cut.sum())}, mask flips at the edge "
+        f"{flips[0].numel()}")
+    return worst
+
+
+def check_stages(PT, flags, dev, x):
+    """profile_stages' first-chunk card outputs against the CPU's stage
+    functions on the same inputs (the gathers against their plain
+    versions). Returns the gathers' max abs errors by instantiation."""
+    from neuray_tpu_torch.utils.params import load_params_npz
+    from neuray_tpu_torch.utils.tool_setup import BENCH_WEIGHTS
+    sh = PT.shapes(flags, dev)
+    cpu = torch.device("cpu")
+    params = load_params_npz(BENCH_WEIGHTS)
+    tags = set(x["outputs"])
+    plain = PT.build_stages(x["inputs"], sh, tags.__contains__, cpu, params)
+    f32 = PT.build_stages(x["inputs"], sh, {"dist", "agg"}.__contains__, cpu,
+                          params, dtype=None)
+    errors = {}
+    with torch.inference_mode():
+        for tag, card in x["outputs"].items():
+            fn, args = plain[tag]
+            ref = fn(*args[0])
+            if tag == "proj":
+                hold_projection(card, ref, sh.size, projection_rounding(
+                    *(torch.from_numpy(x["inputs"][k]) for k in ("poses",
+                                                                  "Ks")),
+                    torch.from_numpy(x["inputs"]["pts"][0]).reshape(-1, 3)))
+            elif tag in STAGE_HOLD:
+                name = STAGE_HOLD[tag]
+                for a, b in zip(card, ref):
+                    err = hold(name, a.cpu(), b)
+                    key = name.split()[0]
+                    errors[key] = max(errors.get(key, 0.0), err)
+                log(f"  {PT.STAGES[tag][0]}: the kernel vs its plain "
+                    f"version max {errors[name.split()[0]]:.3g}")
+            elif tag in ("dist", "agg"):
+                fn32, args32 = f32[tag]
+                for i, (a, b, c) in enumerate(zip(card, ref,
+                                                  fn32(*args32[0]))):
+                    lossy_held(f"{PT.STAGES[tag][0]} output {i}", a, b, c)
+            else:
+                err = (card.cpu() - ref).abs().max().item()
+                log(f"  {PT.STAGES[tag][0]}: card vs CPU max {err:.3g}")
+                if not err <= STAGE_TOL:
+                    raise RuntimeError(f"profile_stages {tag}: card vs CPU "
+                                       f"{err:.3g} > {STAGE_TOL}")
+    return errors
+
+
+def tools_phase(GA, R, dev):
+    """Phase 20: the diagnostic and profiling tools on the card, in
+    process, at their card defaults (800x800, 8 views, 64 + 64 samples,
+    the bench route, ``tools/bench_weights.npz``) but for TOOLS'
+    depth, each tool's gather launches held to what its chunk counts
+    imply. (a) ``diag_probe_score``: its scores bit-equal to
+    ``probe_rays`` and ``render_coarse_rays`` called directly on its
+    encode. (b) ``profile_encode``: the staged gather maps bit-equal to
+    ``encode_ref``'s; then ``python -m neuray_tpu_torch.profile_encode`` in
+    a fresh process, its record's keys and device times. (c)
+    ``profile_skip_phases``: the two-phase frame's keep set equal to
+    ``render_frame_skip_empty``'s, and with ``--focus`` the merged frame
+    bit-equal to ``render_frame_probe_focus`` at its settings, both on the
+    tool's encode. (d) ``profile_stages``: each stage's first chunk card
+    vs CPU (``check_stages``). Returns (the gather launches of each tool
+    by instantiation, the kernel-vs-plain errors of (d) by
+    instantiation)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)'s fresh process runs beside (a) and (b)
+    fresh = start_process(
+        [sys.executable, "-m", "neuray_tpu_torch.profile_encode",
+         *TOOLS["encode"][0]], Path(__file__).resolve().parent / "build"
+        / "chip_smoke" / "tools", "profile_encode",
+        cwd=Path(__file__).resolve().parent)
+    try:
+        return tools_run(GA, R, dev, fresh)
+    finally:
+        stop_process(fresh)
+
+
+def tools_run(GA, R, dev, fresh):
+    """``tools_phase``'s body; ``fresh``: the job of (b)'s fresh
+    process."""
+    from neuray_tpu_torch import diag_probe_score as DP
+    from neuray_tpu_torch import profile_encode as PE
+    from neuray_tpu_torch import profile_skip_phases as PS
+    from neuray_tpu_torch import profile_stages as PT
+    counted = []
+
+    def launched(what, x, diff, passes=()):
+        """Hold the launches since the last reset: ``diff`` f32 diff
+        gathers (one an encode) and 2 (rgb, then the 64-ch map) per chunk
+        of the ``passes`` (ray counts) on the route of the tool's config
+        (``x["renderer"].cfg``)."""
+        expected = {"f32": diff, "bf16": 0, "u8": 0}
+        if passes:
+            cfg = x["renderer"].cfg
+            route = ("f32" if not cfg.use_bf16 else
+                     "u8" if cfg.gather_quant == "u8" else "bf16")
+            expected[route] += 2 * sum(-(-n // cfg.ray_batch_num)
+                                       for n in passes)
+        got = dict(GA.LAUNCHES_BY_DTYPE)
+        if got != expected:
+            raise RuntimeError(f"{what}: gather launches {got}, expected "
+                               f"{expected}")
+        counted.append(got)
+        return got
+
+    # (a) the probe-score diagnosis: an encode, the probe and the coarse
+    # pass over every ray
+    t0 = time.perf_counter()
+    GA.reset_launches()
+    rec, x = DP.run(DP.parse_args([]), dev)
+    n_rays = x["que"]["coords"].shape[1]
+    got = launched("diag_probe_score", x, 1, (n_rays, n_rays))
+    r, ref_c, que = x["renderer"], x["ref_c"], x["que"]
+    probe = R._host(R.probe_rays(r, ref_c, que))[0]
+    net = R._host(R.render_coarse_rays(r, ref_c, que, ("hit_prob_nr",))[
+        "hit_prob_nr"].sum(-1))[0]
+    same = {"probe": bool(np.array_equal(probe, x["probe"])),
+            "net": bool(np.array_equal(net, x["net"]))}
+    log(f"phase 20(a) diag_probe_score: {json.dumps(rec)}")
+    log(f"phase 20(a): scores bit-equal to probe_rays and "
+        f"render_coarse_rays on its encode {same}; launches {got} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(same.values()):
+        raise RuntimeError(f"diag_probe_score's scores differ from direct "
+                           f"calls: {same}")
+    del x, r, ref_c, que
+
+    # (b) the encode profiler: an f32 diff gather in each call's init net
+    # and in its fused encode
+    t0 = time.perf_counter()
+    GA.reset_launches()
+    flags = tool_flags(PE, "encode")
+    rec, outputs = PE.run(flags, dev)
+    got = launched("profile_encode", None, 2 * (1 + flags.iters))
+    staged, fused = outputs["gather_cache"], outputs["fused_encode"]
+    same = staged.keys() == fused.keys() and all(
+        torch.equal(staged[k], fused[k]) for k in fused)
+    log(f"phase 20(b) profile_encode: {json.dumps(rec)}; the staged maps "
+        f"bit-equal to encode_ref's {same}; launches {got} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not same:
+        raise RuntimeError("profile_encode's staged maps differ from "
+                           "encode_ref's")
+    del outputs, staged, fused
+    code, out, err, seconds = finish_process(fresh)
+    if code:
+        raise RuntimeError(f"python -m neuray_tpu_torch.profile_encode: exit "
+                           f"{code}: {err[-2000:]}")
+    fresh = json.loads(out.strip().splitlines()[-1])
+    log(f"phase 20(b) python -m neuray_tpu_torch.profile_encode (on a card "
+        f"shared with (a), (b), phase 19(d)'s trainer and phase 18(e)'s "
+        f"CLIs; its times are a shared card's), done in {seconds:.1f} s: "
+        f"{json.dumps(fresh)}")
+    if fresh.keys() != rec.keys() or not all(
+            fresh[f"{s}_device_ms"] > 0 for s in PE.STAGES):
+        raise RuntimeError(f"profile_encode in a fresh process: keys "
+                           f"{sorted(fresh)}, expected {sorted(rec)}")
+
+    # (c) the skip profiler: its frames, each an encode and its passes
+    for focus in (False, True):
+        t0 = time.perf_counter()
+        GA.reset_launches()
+        flags = tool_flags(PS, "focus" if focus else "skip")
+        rec, x = PS.run(flags, dev)
+        # the warm-up, the timed and (on the card) the profiled frames
+        frames = (flags.warmup + flags.iters
+                  + (dev.type == "cuda") * flags.profile_frames)
+        kept = rec["kept"]
+        r, ref_c, que = x["renderer"], x["ref_c"], x["que"]
+        h, w = x["image_hw"]
+        if focus:
+            n_probe = -(-h // PS.STRIDE) * -(-w // PS.STRIDE)
+            got = launched("profile_skip_phases --focus", x, frames,
+                           (n_probe, kept, kept) * frames)
+            direct = R.render_frame_probe_focus(
+                r, ref_c, que, threshold=flags.threshold, image_hw=(h, w),
+                dilate=PS.DILATE, probe_stride=PS.STRIDE)
+            keys = ("keep_mask", "pixel_colors_nr", "pixel_colors_nr_fine")
+        else:
+            got = launched("profile_skip_phases", x, frames,
+                           (h * w, kept) * frames)
+            direct = R.render_frame_skip_empty(r, ref_c, que,
+                                               flags.threshold)
+            keys = ("keep_mask",)
+        same = {k: bool(np.array_equal(x["frame"][k], direct[k]))
+                for k in keys}
+        what = "--focus" if focus else "two-phase"
+        log(f"phase 20(c) profile_skip_phases {what}: {json.dumps(rec)}")
+        log(f"phase 20(c) {what}: equal to the driver's frame {same}; "
+            f"launches {got} ({time.perf_counter() - t0:.1f} s)")
+        if not all(same.values()):
+            raise RuntimeError(f"profile_skip_phases {what} differs from the "
+                               f"driver's frame: {same}")
+        del x, r, ref_c, que, direct
+
+    # (d) the stage profiler: the warm-up, timed and (on the card)
+    # profiled passes over its chunks, two gathers a chunk on each map
+    t0 = time.perf_counter()
+    GA.reset_launches()
+    flags = tool_flags(PT, "stages")
+    rec, x = PT.run(flags, dev, log=lambda *a, **k: log(*a))
+    n = 2 * (1 + flags.iters + (dev.type == "cuda")) * PT.shapes(flags,
+                                                                 dev).k
+    got = dict(GA.LAUNCHES_BY_DTYPE)
+    if got != {"f32": n, "bf16": n, "u8": n}:
+        raise RuntimeError(f"profile_stages: gather launches {got}, "
+                           f"expected {n} of each map")
+    counted.append(got)
+    log(f"phase 20(d) profile_stages: {json.dumps(rec)}; launches {got}")
+    errors = check_stages(PT, flags, dev, x)
+    log(f"phase 20(d): {time.perf_counter() - t0:.1f} s")
+    return counted, errors
 
 
 def load_gather(root):
@@ -5149,14 +5544,35 @@ def main():
             "gen": gen_step_s, "ft": ft_step_s})
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    scene_launches, scene_backward, scene_rows = scenes_phase(
-        GA, R, dev, work / "scenes")
-    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    scene_launches, scene_rows = scenes_phase(GA, R, dev, work / "scenes")
+    log(f"phase 19(a-c): {time.perf_counter() - t0:.1f} s")
+    # phase 19(d)'s trainer, phase 14's fresh-process CLI and phase 18(e)'s
+    # CLIs, processes of their own, run beside phase 20
+    t0 = time.perf_counter()
+    jobs = [start_scene_trainer(work / "scenes"),
+            start_cli_fresh_process(work, weights)]
+    mg_jobs = {}
+    try:
+        mg_jobs = start_mg_cli(work, weights)
+        tools_launches, tools_errors = tools_phase(GA, R, dev)
+        log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        train_fwd, scene_backward = scene_trainer(GA, dev, work / "scenes",
+                                                  jobs[0])
+        cli_fresh_process(work, jobs[1])
+        mg_cli(work, mg_jobs, smi)
+        log(f"phases 19(d), 14's fresh process and 18(e), after phase 20: "
+            f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        for job in jobs + list(mg_jobs.values()):
+            stop_process(job)
+    log(f"phases 19(d), 14's fresh process, 18(e) and 20: "
+        f"{time.perf_counter() - t0:.1f} s")
     counted += [fast_launches, db_launches, ref_launches, dr_launches,
-                mg_launches, *scene_launches]
-    for name in ("f32", "u8"):
+                mg_launches, *scene_launches, train_fwd, *tools_launches]
+    for name in ("f32", "bf16", "u8"):
         kernel_stats[name]["max_abs_err"] = max(
-            [kernel_stats[name]["max_abs_err"]]
+            [kernel_stats[name]["max_abs_err"], tools_errors.get(name, 0.0)]
             + [r["max_abs_err"] for r in cv_rows + gen_rows + fast_rows
                + db_rows + scene_rows if r["dtype"] == name])
     backward_stats["max_abs_err"] = max(

@@ -56,6 +56,18 @@ VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
             "pixel_colors_dr_fine")
 
 
+def sample_loader(dataset, order, workers: int,
+                  pin_memory: bool = False) -> Iterator[Any]:
+    """The samples ``dataset[i]`` for i in ``order``, in order: made by
+    ``workers`` spawned ``DataLoader`` processes, or in this one for 0
+    (the trainers' loader; ``bench_input_pipeline`` times it)."""
+    if workers == 0:
+        return (dataset[i] for i in order)
+    return iter(torch.utils.data.DataLoader(
+        dataset, batch_size=None, sampler=order, num_workers=workers,
+        multiprocessing_context="spawn", pin_memory=pin_memory))
+
+
 class Logger:
     """Scalars appended to ``<model_dir>/<prefix>.txt`` (nothing where not
     ``enabled``: the ranks other than 0)."""
@@ -334,13 +346,9 @@ class Trainer(BaseTrainer):
         size, rank = self.mesh.size, self.mesh.rank
         order = [(i * size + rank) % len(self.train_dataset)
                  for i in range(n)]
-        workers = self.cfg["worker_num"]
-        if workers == 0:
-            return (self.train_dataset[i] for i in order)
-        return iter(torch.utils.data.DataLoader(
-            self.train_dataset, batch_size=None, sampler=order,
-            num_workers=workers, multiprocessing_context="spawn",
-            pin_memory=self.device.type == "cuda"))
+        return sample_loader(self.train_dataset, order,
+                             self.cfg["worker_num"],
+                             self.device.type == "cuda")
 
     def _batches(self, step: int) -> Iterator[Dict[str, Any]]:
         self.generator.manual_seed(7 + self.mesh.rank)

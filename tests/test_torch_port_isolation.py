@@ -36,22 +36,32 @@ def test_the_port_imports_no_jax():
                  "neuray_tpu_torch.check_bf16_quality",
                  "neuray_tpu_torch.check_trajectory_escalation",
                  "neuray_tpu_torch.make_bench_weights",
-                 "neuray_tpu_torch.render", "neuray_tpu_torch.parallel.spawn"):
+                 "neuray_tpu_torch.render", "neuray_tpu_torch.parallel.spawn",
+                 "neuray_tpu_torch.utils.profiling",
+                 "neuray_tpu_torch.diag_probe_score",
+                 "neuray_tpu_torch.profile_encode",
+                 "neuray_tpu_torch.profile_skip_phases",
+                 "neuray_tpu_torch.profile_stages",
+                 "neuray_tpu_torch.bench_input_pipeline"):
         assert name in record["imported"]
     assert record["loaded"] == [], record["loaded"]
 
 
 def test_the_tools_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     """Without a CUDA device and without ``--device cpu``, each of the
-    quality tools and the trainer raises before it builds a model."""
+    quality, diagnostic and profiling tools and the trainer raises before
+    it builds a model."""
     import pytest
     import torch
 
     from neuray_tpu_torch import (
         check_bf16_quality, check_skip_quality, check_trajectory_escalation,
-        make_bench_weights)
+        diag_probe_score, make_bench_weights, profile_encode,
+        profile_skip_phases, profile_stages)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for tool in (check_skip_quality, check_bf16_quality,
-                 check_trajectory_escalation, make_bench_weights):
+                 check_trajectory_escalation, make_bench_weights,
+                 diag_probe_score, profile_encode, profile_skip_phases,
+                 profile_stages):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tool.main([])
