@@ -11,7 +11,9 @@ into every reference view, gathers rgb and features (``ops.gather``
 kernels on a CUDA tensor), decodes the visibility mixture, aggregates
 across views and composites; then the same again at importance-resampled
 fine depths. ``render_full`` runs
-the encode and the chunk loop under ``torch.inference_mode()``.
+the encode and the chunk loop under ``torch.inference_mode()``. Each
+pass is a span ``pass``, its decode and aggregation spans
+``dist_decoder`` and ``agg_net`` inside it (``utils/profiling.py``).
 
 ``NeurayRenderer.forward`` is the training forward on one ray chunk,
 with autograd (the encode included): the fine sampler reads the CDF at
@@ -89,6 +91,7 @@ from neuray_tpu_torch.ops.compositing import (
 from neuray_tpu_torch.ops.interpolate import (
     grid_sample_nhwc, image_to_u8, interpolate_feature_map, quantize_u8)
 from neuray_tpu_torch.parallel import sharding as P
+from neuray_tpu_torch.utils.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -322,10 +325,11 @@ class NeurayRenderer(nn.Module):
                                ref_depth_range: torch.Tensor,
                                que_dists: torch.Tensor, is_fine: bool):
         decoder = self.fine_dist_decoder if is_fine else self.dist_decoder
-        mean, var, vis, aw = decoder(prj["ray_feats"])
-        alpha, visibility, hit_prob = decoder.compute_prob(
-            prj["depth"][..., 0], que_dists[None], mean, var, vis, aw,
-            True, ref_depth_range)
+        with span("dist_decoder"):
+            mean, var, vis, aw = decoder(prj["ray_feats"])
+            alpha, visibility, hit_prob = decoder.compute_prob(
+                prj["depth"][..., 0], que_dists[None], mean, var, vis, aw,
+                True, ref_depth_range)
         mask = prj["mask"]
         if self.cfg.use_dr_prediction:
             gs = self.cfg.alpha_value_ground_state
@@ -337,7 +341,8 @@ class NeurayRenderer(nn.Module):
     def _network_rendering(self, prj: Tensors, que_dir: torch.Tensor,
                            is_fine: bool, pos: torch.Tensor | None = None):
         agg = self.fine_agg_net if is_fine else self.agg_net
-        density, colors = agg(prj, que_dir, pos=pos)
+        with span("agg_net"):
+            density, colors = agg(prj, que_dir, pos=pos)
         alpha = 1.0 - torch.exp(-F.relu(density))
         hit_prob = alpha_values2hit_prob(alpha)
         return hit_prob, colors, composite_colors(hit_prob, colors)
@@ -408,34 +413,37 @@ class NeurayRenderer(nn.Module):
         asked (``estimate_window_clip`` reads it). In training with
         ``use_self_hit_prob`` the outputs carry ``hit_prob_self``
         (``_predict_self_hit_prob``; que then holds ``ray_feats``)."""
-        c = self.cfg
-        que_dists = S.depth2inv_dists(que_depth, que["depth_range"])
-        que_pts, que_dir = G.depth2points(
-            que["coords"], que["poses"], que["Ks"], que_depth)
-        prj = self._project_and_gather(ref, que_pts)
-        prj = self._predict_proj_ray_prob(
-            prj, ref["depth_range"], que_dists, is_fine)
-        hit_prob_nr, colors_nr, pixel_colors_nr = self._network_rendering(
-            prj, que_dir, is_fine, pos)
-        outputs = {"pixel_colors_nr": pixel_colors_nr,
-                   "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
-        if c.use_dr_prediction:
-            hit_prob_dr, _, pixel_colors_dr = self._direct_rendering(
-                prj, que_dir, colors_nr)
-            outputs["pixel_colors_dr"] = pixel_colors_dr
-            outputs["hit_prob_dr"] = hit_prob_dr
-        if is_train and c.use_self_hit_prob:
-            outputs["hit_prob_self"] = self._predict_self_hit_prob(
-                que, que_depth, que_dists, is_fine)
-        if que.get("imgs") is not None:
-            outputs["pixel_colors_gt"] = grid_sample_nhwc(
-                que["imgs"], que["coords"], align_corners=True)
-        if c.use_ray_mask:
-            rm = prj["mask"].sum(dim=0) > c.ray_mask_view_num   # qn,rn,dn,1
-            outputs["ray_mask"] = (rm.sum(dim=2) > c.ray_mask_point_num)[..., 0]
-        if c.render_depth:
-            outputs["render_depth"] = (hit_prob_nr * que_depth).sum(dim=-1)
-        return outputs
+        with span("pass"):
+            c = self.cfg
+            que_dists = S.depth2inv_dists(que_depth, que["depth_range"])
+            que_pts, que_dir = G.depth2points(
+                que["coords"], que["poses"], que["Ks"], que_depth)
+            prj = self._project_and_gather(ref, que_pts)
+            prj = self._predict_proj_ray_prob(
+                prj, ref["depth_range"], que_dists, is_fine)
+            hit_prob_nr, colors_nr, pixel_colors_nr = self._network_rendering(
+                prj, que_dir, is_fine, pos)
+            outputs = {"pixel_colors_nr": pixel_colors_nr,
+                       "hit_prob_nr": hit_prob_nr, "colors_nr": colors_nr}
+            if c.use_dr_prediction:
+                hit_prob_dr, _, pixel_colors_dr = self._direct_rendering(
+                    prj, que_dir, colors_nr)
+                outputs["pixel_colors_dr"] = pixel_colors_dr
+                outputs["hit_prob_dr"] = hit_prob_dr
+            if is_train and c.use_self_hit_prob:
+                outputs["hit_prob_self"] = self._predict_self_hit_prob(
+                    que, que_depth, que_dists, is_fine)
+            if que.get("imgs") is not None:
+                outputs["pixel_colors_gt"] = grid_sample_nhwc(
+                    que["imgs"], que["coords"], align_corners=True)
+            if c.use_ray_mask:
+                # qn, rn, dn, 1
+                rm = prj["mask"].sum(dim=0) > c.ray_mask_view_num
+                outputs["ray_mask"] = (
+                    rm.sum(dim=2) > c.ray_mask_point_num)[..., 0]
+            if c.render_depth:
+                outputs["render_depth"] = (hit_prob_nr * que_depth).sum(dim=-1)
+            return outputs
 
     def _fine_depth(self, que_depth: torch.Tensor, hit_prob: torch.Tensor,
                     depth_range: torch.Tensor, fdn: int,

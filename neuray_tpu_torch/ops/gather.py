@@ -42,6 +42,8 @@ from pathlib import Path
 
 import torch
 
+from neuray_tpu_torch.utils.profiling import count
+
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / \
     "gather_bilinear_border.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / \
@@ -52,7 +54,10 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel launches (never the plain versions'): the forward's in all and by
 # the map's dtype ("f32", "bf16", "u8"), the backward's on their own; read
 # and reset (``reset_launches``) by chip_smoke.py to prove the render and
-# training paths went through the kernels
+# training paths went through the kernels. Under a profiler session each
+# launch also counts its bytes (``launch_bytes``, ``backward_launch_bytes``)
+# into the recorder's ``gather.bytes`` and ``gather.bwd_bytes``
+# (``utils/profiling.py``)
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"f32": 0, "bf16": 0, "u8": 0}
 BACKWARD_LAUNCHES = 0
@@ -71,10 +76,28 @@ def reset_launches() -> None:
         LAUNCHES_BY_DTYPE[k] = 0
 
 
-def _count(dtype_name: str) -> None:
+def launch_bytes(v: int, p: int, c: int, out_elem: int,
+                 masked: bool) -> int:
+    """The bytes a forward launch needs at v x p points: the coordinates
+    (8 bytes a point), the mask (4) where given and the output (c
+    channels of ``out_elem`` bytes), each once; the map's reads left out
+    (only the coordinates say which pixels the taps touch)."""
+    return v * p * (8 + (4 if masked else 0) + c * out_elem)
+
+
+def backward_launch_bytes(v: int, p: int, c: int, fh: int, fw: int,
+                          masked: bool) -> int:
+    """The bytes a backward launch needs: grad_out, the coordinates and
+    the mask read once, the whole [v, fh, fw, c] f32 map gradient written
+    once."""
+    return v * p * (c * 4 + 8 + (4 if masked else 0)) + v * fh * fw * c * 4
+
+
+def _count(dtype_name: str, nbytes: int) -> None:
     global LAUNCHES
     LAUNCHES += 1
     LAUNCHES_BY_DTYPE[dtype_name] += 1
+    count("gather.bytes", nbytes)
 
 
 # ---------------- plain versions ----------------
@@ -416,7 +439,8 @@ def _launch(feats: torch.Tensor, coords: torch.Tensor,
         None if mask is None else mask.data_ptr(), scale, offset,
         out.data_ptr(), v, p, fh, fw, c, frame, h, w, n, vec,
         torch._C._cuda_getCurrentRawStream(index)))
-    _count(name)
+    _count(name, launch_bytes(v, p, c, out.element_size(),
+                              mask is not None))
     return out
 
 
@@ -441,6 +465,8 @@ def _launch_backward(grad_out: torch.Tensor, coords: torch.Tensor,
         scratch.data_ptr(), v, p, fh, fw, c, frame, h, w,
         torch._C._cuda_getCurrentRawStream(index)))
     BACKWARD_LAUNCHES += 1
+    count("gather.bwd_bytes",
+          backward_launch_bytes(v, p, c, fh, fw, mask is not None))
     return grad_map
 
 

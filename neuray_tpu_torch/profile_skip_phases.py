@@ -28,7 +28,8 @@ CUDA-event span ``<phase>_device_ms`` (``utils/profiling.py:
 StageTimer``). On the card one more frame runs under ``torch.profiler``
 for each phase's kernel time, ``<phase>_busy_ms``, and
 ``<phase>_idle_share``, the share of the reported frame's phase in which
-the card ran no kernel (1 - busy / host time). A profiled frame takes
+the card ran no kernel (1 - busy / host time); both None where the
+profiler gave no device rows (not measured). A profiled frame takes
 about twice a frame's time. The warm-up and profiled frames are the
 namespace's ``warmup`` and ``profile_frames`` (``WARMUP``,
 ``PROFILE_FRAMES``), not flags: a caller in process may lower them.
@@ -207,9 +208,10 @@ def run(flags, device: torch.device, params=None):
             one_frame(flags, renderer, ref, que, image_hw, timer, device)
         b = timer.summary()
         for p in phases:
-            rec[f"{p}_busy_ms"] = round(b[f"{p}_busy_ms"], 3)
-            rec[f"{p}_idle_share"] = round(
-                1.0 - b[f"{p}_busy_ms"] / (1e3 * s[p]), 4)
+            busy = b[f"{p}_busy_ms"]
+            rec[f"{p}_busy_ms"] = None if busy is None else round(busy, 3)
+            rec[f"{p}_idle_share"] = (None if busy is None else round(
+                1.0 - busy / (1e3 * s[p]), 4))
     rec["device"] = device_name(device)
     return rec, dict(renderer=renderer, ref_c=ref_c, que=que,
                      image_hw=image_hw, frame=frame,

@@ -51,6 +51,7 @@ from neuray_tpu_torch.train.lr import name2lr_manager
 from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
+from neuray_tpu_torch.utils.profiling import span
 
 VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
             "pixel_colors_dr_fine")
@@ -203,11 +204,13 @@ class BaseTrainer:
         """One Adam update on one batch: the training forward and losses
         (``_losses``), total = the sum of the means of the ``loss*``
         entries, backward, step. Returns each loss's mean and
-        ``loss_total``."""
+        ``loss_total``. The forward and losses are the span
+        ``step.forward`` (``utils/profiling.py``)."""
+        with span("step.forward"):
+            losses = self._losses(batch)
         metrics = adam_update(self.optimizer, self.params,
-                              self.schedule(self.opt_count),
-                              self._losses(batch), self.mesh,
-                              self.loss_fn.names)
+                              self.schedule(self.opt_count), losses,
+                              self.mesh, self.loss_fn.names)
         self.opt_count += 1
         return metrics
 
@@ -415,24 +418,30 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
     (``average_gradients``: a loss only some ranks have, over those;
     ``names``, every loss name a rank may report, ``build_losses``'
     ``fn.names``).
-    Returns each loss's mean and ``loss_total``."""
+    Returns each loss's mean and ``loss_total``. The backward and the
+    zero gradients are the span ``step.backward``; the loss values' read
+    back (or average) and Adam's step, ``step.update``
+    (``utils/profiling.py``)."""
     means = {k: v.mean() for k, v in losses.items()}
     total = sum(v for k, v in means.items() if k.startswith("loss"))
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    values = {k: v.detach() for k, v in {**means, "loss_total": total}.items()}
-    if mesh is not None and mesh.size > 1:
-        values = P.average_gradients(params, mesh, values,
-                                     (*names, "loss_total"))
-    else:
-        values = dict(zip(values, torch.stack(
-            list(values.values())).tolist()))
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+    with span("step.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with span("step.update"):
+        values = {k: v.detach()
+                  for k, v in {**means, "loss_total": total}.items()}
+        if mesh is not None and mesh.size > 1:
+            values = P.average_gradients(params, mesh, values,
+                                         (*names, "loss_total"))
+        else:
+            values = dict(zip(values, torch.stack(
+                list(values.values())).tolist()))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
     return values
 
 

@@ -1,5 +1,6 @@
-"""The stage clock of the port's profilers, and a device trace (port of
-``neuray_tpu/utils/profiling.py``).
+"""The stage clock of the port's profilers (port of
+``neuray_tpu/utils/profiling.py``), and the recorder of the spans and
+counters the port keeps on its main path.
 
 ``StageTimer`` keeps the JAX class's totals, counts, ``summary()`` and
 ``report()``. A stage given a CUDA tensor or device to ``sync`` is ended
@@ -19,22 +20,37 @@ by a synchronize of the current stream, as the JAX class blocks on its
   time, so a profiler that wants both runs a busy pass of its own and
   reads the idle share of a stage as ``1 - busy_ms / host ms`` of its
   unprofiled pass: near 1 where the host's launches, readbacks or numpy
-  work hold the card back.
+  work hold the card back. A session that gave no device rows leaves
+  the stage's busy time not measured (``None``), never 0.
 
 A stage on the CPU (``sync`` None or a CPU tensor) has host time only,
 and ``report()`` says so.
 
-``device_trace(logdir)`` wraps ``torch.profiler.profile`` (the JAX
-package's ``jax.profiler`` trace) and writes a Chrome trace into
-``logdir``; with ``None`` it does nothing.
+The recorder (``span``, ``count``, ``recorded``) keeps the port's spans
+at its layers' boundaries and its counters, and only where a
+``torch.profiler`` session (of any activity) is active: on the thread
+that entered it and on the threads that inherit its state, as autograd's
+do. Off, ``span`` is one check and hands back a shared null context,
+``count`` one check. The first span or count of a session drops the last
+session's records and, on CUDA, synchronizes the current stream once and
+records an anchor event with its ``time.time_ns()``; a call on that
+thread that finds no session active ends it (two sessions with no call
+of the recorder between them read as one). A span keeps its name, its parent
+(the span open around it on its thread), its host start and end on
+``time.time_ns()`` (the clock Kineto stamps its device rows with) and, on
+CUDA, a pair of timing events on the current stream, placed on the host
+clock after the session as the anchor's time plus their time from the
+anchor. Nothing is recorded while the current stream is being captured
+into a CUDA graph (a replay runs no Python). What reads them:
+``portbench/pb/program_spans.py``.
 """
 from __future__ import annotations
 
 import contextlib
-import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,35 +63,17 @@ def _cuda(sync) -> bool:
     return bool(getattr(sync, "is_cuda", False))
 
 
-def _busy_ms(prof) -> float:
+def _busy_ms(prof) -> Optional[float]:
     """The summed durations of a profiler session's device rows
     (kernels, memsets, copies; not ``record_function`` ranges), read from
     its raw Kineto events: ``prof.events()`` would build a Python event
-    tree of every row first (a frame's ~400k kernels took ~1 min)."""
+    tree of every row first (a frame's ~400k kernels took ~1 min). None
+    where the session gave no device row: its busy time is not
+    measured."""
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda
-               and not e.is_user_annotation()) / 1e6
-
-
-@contextlib.contextmanager
-def device_trace(logdir: Optional[str]):
-    """``torch.profiler`` trace of the block (host and, with a card,
-    device activity), written to ``logdir/trace_<pid>_<ns>.json`` for
-    chrome://tracing or Perfetto. No-op when logdir is None. Yields the
-    profiler (None without a logdir)."""
-    if logdir is None:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    rows = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+    return sum(rows) / 1e6 if rows else None
 
 
 class StageTimer:
@@ -88,7 +86,8 @@ class StageTimer:
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
         self.device_totals: Dict[str, float] = defaultdict(float)
-        self.busy_totals: Dict[str, float] = defaultdict(float)
+        # a stage's summed busy ms; None once a session gave no device row
+        self.busy_totals: Dict[str, Optional[float]] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, sync=None):
@@ -120,15 +119,20 @@ class StageTimer:
         if cuda:
             self.device_totals[name] += start.elapsed_time(end)
             if self.busy:
-                self.busy_totals[name] += _busy_ms(prof)
+                busy, total = _busy_ms(prof), self.busy_totals.get(name, 0.0)
+                self.busy_totals[name] = (None if busy is None or total is None
+                                          else total + busy)
 
-    def _per_call(self, totals: Dict[str, float], k: str) -> float:
-        return totals[k] / max(self.counts[k], 1)
+    def _per_call(self, totals: Dict[str, Optional[float]],
+                  k: str) -> Optional[float]:
+        return None if totals[k] is None else totals[k] / max(self.counts[k],
+                                                               1)
 
-    def summary(self) -> Dict[str, float]:
+    def summary(self) -> Dict[str, Optional[float]]:
         """Each stage's mean host seconds a call, as the JAX class's;
         beside it, for a stage timed on the card, ``<stage>_device_ms``
-        and, with ``busy``, ``<stage>_busy_ms``."""
+        and, with ``busy``, ``<stage>_busy_ms`` (None where a session gave
+        no device row: not measured)."""
         out = {k: self._per_call(self.totals, k) for k in self.totals}
         for k in self.device_totals:
             out[f"{k}_device_ms"] = self._per_call(self.device_totals, k)
@@ -151,12 +155,179 @@ class StageTimer:
                          f"{self._per_call(self.device_totals, k):.1f} "
                          f"ms/call")
             if k in self.busy_totals:
-                line += (f", kernels busy "
-                         f"{self._per_call(self.busy_totals, k):.1f} "
-                         f"ms/call")
+                busy = self._per_call(self.busy_totals, k)
+                line += (", kernels busy not measured" if busy is None
+                         else f", kernels busy {busy:.1f} ms/call")
             lines.append(line)
         host_only = sorted(set(self.totals) - set(self.device_totals))
         if host_only:
             lines.append("host clock only (no device time): "
                          + ", ".join(host_only))
         return "\n".join(lines)
+
+
+# ---------------- the recorder of spans and counters ----------------
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+class Span(NamedTuple):
+    """A recorded span: its ``name``, its ``parent`` (an index into
+    ``Recorded.spans``, None at the top of its thread), its ``host`` start
+    and end and its ``device`` interval (None off CUDA), in ns on the
+    ``time.time_ns()`` clock."""
+    name: str
+    parent: Optional[int]
+    host: Tuple[int, int]
+    device: Optional[Tuple[int, int]]
+
+
+class Recorded(NamedTuple):
+    """What the last session kept: its finished spans in the order they
+    began, and its counters."""
+    spans: List[Span]
+    counters: Dict[str, float]
+
+
+class _Row:
+    __slots__ = ("name", "parent", "t0", "t1", "e0", "e1")
+
+
+class _Recorder:
+    """The process's records (see the module's doc)."""
+
+    def __init__(self):
+        self.live = False
+        self.owner = None
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.rows: List[_Row] = []
+        self.counters: Dict[str, float] = {}
+        self.anchor = None
+
+    def begin(self) -> None:
+        with self.lock:
+            if self.live:
+                return
+            self.rows, self.counters, self.anchor = [], {}, None
+            if torch.cuda.is_initialized():
+                torch.cuda.current_stream().synchronize()
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.anchor = (ev, time.time_ns())
+            self.owner = threading.get_ident()
+            self.live = True
+
+    def end(self) -> None:
+        """No profiler on this thread: the session has ended if this is
+        the thread that began it."""
+        if threading.get_ident() == self.owner:
+            self.live = False
+
+    def open(self, name: str) -> Optional[_Row]:
+        if _capturing():
+            return None
+        if not self.live:
+            self.begin()
+        stack = self.local.__dict__.setdefault("stack", [])
+        row = _Row()
+        row.name, row.t1, row.e1 = name, None, None
+        row.parent = stack[-1] if stack else None
+        row.t0 = time.time_ns()
+        row.e0 = None
+        if self.anchor is not None:
+            row.e0 = torch.cuda.Event(enable_timing=True)
+            row.e0.record()
+        with self.lock:
+            self.rows.append(row)
+        stack.append(row)
+        return row
+
+    def close(self, row: Optional[_Row]) -> None:
+        if row is None:
+            return
+        if row.e0 is not None:
+            row.e1 = torch.cuda.Event(enable_timing=True)
+            row.e1.record()
+        row.t1 = time.time_ns()
+        stack = self.local.stack
+        if stack and stack[-1] is row:
+            stack.pop()
+        elif row in stack:
+            stack.remove(row)
+
+    def add(self, name: str, n: float) -> None:
+        if _capturing():
+            return
+        if not self.live:
+            self.begin()
+        with self.lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def recorded(self) -> Recorded:
+        if self.live and not _profiling():
+            self.end()
+        with self.lock:
+            rows = [r for r in self.rows if r.t1 is not None]
+            counters = dict(self.counters)
+        index = {id(r): i for i, r in enumerate(rows)}
+        if self.anchor is not None and rows:
+            torch.cuda.synchronize()
+        return Recorded([Span(r.name, index.get(id(r.parent)), (r.t0, r.t1),
+                              self.device_ns(r)) for r in rows], counters)
+
+    def device_ns(self, row: _Row) -> Optional[Tuple[int, int]]:
+        if row.e0 is None or row.e1 is None:
+            return None
+        ev, ns = self.anchor
+        return tuple(ns + round(ev.elapsed_time(e) * 1e6)
+                     for e in (row.e0, row.e1))
+
+
+_RECORDER = _Recorder()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "row")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.row = _RECORDER.open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _RECORDER.close(self.row)
+        return False
+
+
+def span(name: str):
+    """``with span(name):`` a span of the port (see the module's doc);
+    a shared null context while no profiler session is active."""
+    if _profiling():
+        return _Span(name)
+    if _RECORDER.live:
+        _RECORDER.end()
+    return _OFF
+
+
+def count(name: str, n: float) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler session is
+    active."""
+    if _profiling():
+        _RECORDER.add(name, n)
+    elif _RECORDER.live:
+        _RECORDER.end()
+
+
+def recorded() -> Recorded:
+    """The spans and counters of the last session (its spans begun since
+    its first span or count, finished by now)."""
+    return _RECORDER.recorded()

@@ -1,0 +1,9 @@
+"""The device's idle time in gaps that began while the host was inside
+the training step's ``step.update`` span:
+the loss values' read back and Adam's step (the spans inside it included;
+pb/program_spans.py), in ms a step."""
+from pb.program_spans import idle_ms
+
+
+def read(readout):
+    return idle_ms(readout, "step.update", "steps")
