@@ -16,6 +16,7 @@ and LayerNorm, whose parameters are f32, returns f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -35,6 +36,19 @@ def sinusoid_pos_encoding(d_hid: int, n_samples: int) -> np.ndarray:
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
     return table[None].astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pos_table(n_samples: int, dn: int, stride: int,
+               device: torch.device) -> torch.Tensor:
+    """Rows 0, stride, ... of the [1, max(n_samples, dn * stride), 16]
+    sinusoid table, dn of them, f32 on ``device``; made once, so a pass
+    adds it without a copy from the host (which a CUDA graph cannot
+    capture)."""
+    table = sinusoid_pos_encoding(16, max(n_samples, dn * stride))
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            np.ascontiguousarray(table[:, ::stride][:, :dn])).to(device)
 
 
 def sinusoid_pos_at(d_hid: int, pos: torch.Tensor) -> torch.Tensor:
@@ -203,11 +217,9 @@ class IBRNetWithNeuRay(nn.Module):
         if pos is not None:
             globalfeat = globalfeat + sinusoid_pos_at(16, pos).to(globalfeat)
         else:
-            dn = globalfeat.shape[1]
-            table = sinusoid_pos_encoding(
-                16, max(self.n_samples, dn * pos_stride))[:, ::pos_stride]
-            globalfeat = globalfeat + torch.from_numpy(
-                table[:, :dn]).to(globalfeat.device)
+            globalfeat = globalfeat + _pos_table(
+                self.n_samples, globalfeat.shape[1], pos_stride,
+                globalfeat.device)
         attn_mask = (num_valid_obs > 1).to(globalfeat.dtype)
         globalfeat = self.ray_attention(globalfeat, mask=attn_mask)
         sigma = self.out_geometry_fc(globalfeat)
@@ -269,9 +281,8 @@ class IBRNet(nn.Module):
                                 weight.mean(dim=2)], -1)
         globalfeat = self.geometry_fc(globalfeat)              # b,dn,16
         num_valid_obs = mask.sum(dim=2)                        # b,dn,1
-        table = sinusoid_pos_encoding(16, self.n_samples)
-        globalfeat = globalfeat + torch.from_numpy(
-            table[:, :globalfeat.shape[1]]).to(globalfeat.device)
+        globalfeat = globalfeat + _pos_table(
+            self.n_samples, globalfeat.shape[1], 1, globalfeat.device)
         attn_mask = (num_valid_obs > 1).to(globalfeat.dtype)
         globalfeat = self.ray_attention(globalfeat, mask=attn_mask)
         sigma = self.out_geometry_fc(globalfeat)

@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import weakref
 from typing import Any, Callable, Dict, Iterable, Tuple
 
 import numpy as np
@@ -91,7 +92,8 @@ from neuray_tpu_torch.ops.compositing import (
 from neuray_tpu_torch.ops.interpolate import (
     grid_sample_nhwc, image_to_u8, interpolate_feature_map, quantize_u8)
 from neuray_tpu_torch.parallel import sharding as P
-from neuray_tpu_torch.utils.profiling import span
+from neuray_tpu_torch.utils import graphs
+from neuray_tpu_torch.utils.profiling import count, span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -736,15 +738,143 @@ def _keep(out: Tensors, keep_keys: Iterable[str]) -> Tensors:
     return {k: v for k, v in out.items() if k in keep_keys}
 
 
+# ---------------- the exact chunk from CUDA graphs ----------------
+
+def _graphable(ref_c: Tensors, que: Tensors) -> bool:
+    """Whether ``render_rays``' chunk may come from CUDA graphs: no
+    autograd (inference mode, grad off) and every value of the scene and
+    the query a tensor on the coords' CUDA device, or None."""
+    dev = que["coords"].device
+    return (dev.type == "cuda" and torch.is_inference_mode_enabled()
+            and not torch.is_grad_enabled()
+            and all(v is None or (isinstance(v, torch.Tensor)
+                                  and v.device == dev)
+                    for d in (ref_c, que) for v in d.values()))
+
+
+def _graph_key(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors):
+    """What a captured chunk holds fixed beyond its inputs' values: the
+    chunk's shape (``que`` is a chunk), each scene and query key with its
+    tensor's shape and dtype (or None) and the first key it aliases, and
+    each parameter's and buffer's address and version (a replaced weight
+    moves the address; an in-place write bumps the version and so renews
+    the bf16 route's cached casts, ``blocks.ComputeCast``)."""
+    first: Dict[int, tuple] = {}
+
+    def meta(i, d):
+        return tuple((k, None) if v is None else
+                     (k, tuple(v.shape), v.dtype,
+                      first.setdefault(id(v), (i, k)))
+                     for k, v in sorted(d.items()))
+
+    state = tuple((t.data_ptr(), None if t.is_inference() else t._version)
+                  for t in (*renderer.parameters(), *renderer.buffers()))
+    return meta(0, ref_c), meta(1, que), state
+
+
+class _ChunkGraph:
+    """``render_chunk`` recorded for one key (``_graph_key``): static
+    copies of a scene and a query chunk, and the outputs the graphs
+    write (``utils/graphs.py``)."""
+
+    def __init__(self, key, ref_c: Tensors, que: Tensors):
+        self.key = key
+        clones: Dict[int, torch.Tensor] = {}
+
+        def static(d):
+            for v in d.values():
+                if v is not None and id(v) not in clones:
+                    clones[id(v)] = v.clone()
+            return {k: None if v is None else clones[id(v)]
+                    for k, v in d.items()}
+
+        self.ref, self.que = static(ref_c), static(que)
+        self.graph = self.out = None
+
+    def stage(self, ref_c: Tensors, que: Tensors) -> None:
+        """Copy a frame's scene and query into the static copies."""
+        seen = set()
+        for static, d in ((self.ref, ref_c), (self.que, que)):
+            for k, v in d.items():
+                if v is not None and id(v) not in seen:
+                    seen.add(id(v))
+                    static[k].copy_(v)
+
+    def run(self, renderer: NeurayRenderer, que: Tensors, keep,
+            passes: int) -> Tensors:
+        """The chunk's kept outputs: at the first chunk from an eager run,
+        then captured; after that from a replay, copied out."""
+        self.que["coords"].copy_(que["coords"])
+        if self.graph is None:
+            graph = graphs.SegmentedGraph()
+            out, self.out = graph.record(
+                lambda: renderer.render_chunk(self.ref, self.que))
+            self.graph = graph
+            count("render.eager_passes", passes)
+            return _keep(out, keep)
+        self.graph.replay()
+        count("render.graph_passes", passes)
+        return {k: v.clone() for k, v in _keep(self.out, keep).items()}
+
+
+# each renderer's chunk recorded in CUDA graphs, for the last key it
+# rendered; held beside the renderer, so that a copy of it (``copy.copy``,
+# ``copy.deepcopy``) records its own
+_GRAPHS: "weakref.WeakKeyDictionary[NeurayRenderer, _ChunkGraph]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _chunk_graph(renderer: NeurayRenderer, ref_c: Tensors,
+                 que: Tensors) -> "_ChunkGraph | None":
+    """The renderer's ``_ChunkGraph`` for this scene and chunk, staged
+    with them, recorded anew where the key changed; None where the chunk
+    runs eagerly (``_graphable``)."""
+    if not _graphable(ref_c, que):
+        return None
+    key = _graph_key(renderer, ref_c, que)
+    entry = _GRAPHS.get(renderer)
+    if entry is not None and entry.key == key:
+        entry.stage(ref_c, que)
+        return entry
+    _GRAPHS.pop(renderer, None)     # its copies and pool go first
+    entry = _GRAPHS[renderer] = _ChunkGraph(key, ref_c, que)
+    return entry
+
+
+class _ExactStep:
+    """``render_rays``' chunk step. At its first chunk it takes the
+    renderer's recorded chunk (``_chunk_graph``) or, where the chunk may
+    not come from graphs, the eager ``render_chunk``; it counts the
+    passes of each chunk as ``render.graph_passes`` (replayed) or
+    ``render.eager_passes``."""
+
+    def __init__(self, renderer: NeurayRenderer, ref_c: Tensors, keep):
+        self.renderer, self.ref_c, self.keep = renderer, ref_c, keep
+        self.passes = 1 + renderer.cfg.use_hierarchical_sampling
+        self.graph, self.started = None, False
+
+    def __call__(self, que: Tensors) -> Tensors:
+        if not self.started:
+            self.started = True
+            self.graph = _chunk_graph(self.renderer, self.ref_c, que)
+        if self.graph is not None:
+            return self.graph.run(self.renderer, que, self.keep, self.passes)
+        count("render.eager_passes", self.passes)
+        return _keep(self.renderer.render_chunk(self.ref_c, que), self.keep)
+
+
 def render_rays(renderer: NeurayRenderer, ref_c: Tensors, que: Tensors,
                 keep_keys: Iterable[str] = DEFAULT_KEEP,
                 mesh=None) -> Tensors:
     """Chunked ray loop over an encoded ref (from ``encode_ref``):
     renders ``ray_batch_num`` rays at a time and returns the kept
     outputs, each [qn, rn, ...]. ``mesh`` (here and in the other ray
-    loops): shard the rays over its ranks (``_chunk_loop``)."""
-    keep = set(keep_keys)
-    return _chunk_loop(lambda q: _keep(renderer.render_chunk(ref_c, q), keep),
+    loops): shard the rays over its ranks (``_chunk_loop``). On CUDA,
+    without autograd, a chunk is a replay of CUDA graphs cut at its spans
+    (``_ExactStep``): the renderer's first chunk of a key runs eagerly and
+    is recorded, and the renderer keeps the recording until the key
+    changes."""
+    return _chunk_loop(_ExactStep(renderer, ref_c, frozenset(keep_keys)),
                        que, renderer.cfg.ray_batch_num, mesh=mesh)
 
 

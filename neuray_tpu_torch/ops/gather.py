@@ -42,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from neuray_tpu_torch.utils.profiling import count
+from neuray_tpu_torch.utils.profiling import count, per_launch
 
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / \
     "gather_bilinear_border.cu"
@@ -57,7 +57,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # training paths went through the kernels. Under a profiler session each
 # launch also counts its bytes (``launch_bytes``, ``backward_launch_bytes``)
 # into the recorder's ``gather.bytes`` and ``gather.bwd_bytes``
-# (``utils/profiling.py``)
+# (``utils/profiling.py``). A launch captured into a CUDA graph by
+# ``utils/graphs.py`` counts at each replay of its graph, not at the capture
 LAUNCHES = 0
 LAUNCHES_BY_DTYPE = {"f32": 0, "bf16": 0, "u8": 0}
 BACKWARD_LAUNCHES = 0
@@ -93,6 +94,7 @@ def backward_launch_bytes(v: int, p: int, c: int, fh: int, fw: int,
     return v * p * (c * 4 + 8 + (4 if masked else 0)) + v * fh * fw * c * 4
 
 
+@per_launch
 def _count(dtype_name: str, nbytes: int) -> None:
     global LAUNCHES
     LAUNCHES += 1

@@ -6,7 +6,10 @@ Per query point, a degree <= 4 SH expansion of the reference views'
 colours is fitted by the regularized normal equations and evaluated along
 the query direction. The solve keeps the JAX package's explicit batched
 inverse, ``inv(lhs) @ rhs`` (the reference's ``torch.inverse``), not a
-``solve``. It is precision-sensitive (regularizers down to 1e-3), so
+``solve``; it is ``torch.linalg.inv_ex`` without the error check that
+``inv`` adds, which would wait on the device (a CUDA graph cannot
+capture that): ``lhs`` is positive definite, since every point's weights
+sum to at least ``eps`` and the regularizers are >= 0. It is precision-sensitive (regularizers down to 1e-3), so
 every contraction runs in f32: colours of another dtype (bf16 gathers)
 are promoted, as JAX promotes them, and the matmuls take PyTorch's
 default full-f32 cuBLAS path (TF32 stays off; ``utils/device.py:
@@ -70,7 +73,7 @@ def sh_fit(directions: torch.Tensor, colors: torch.Tensor,
     Aw = (A * weights[..., None]).transpose(-1, -2)               # b,k,n
     lhs = Aw @ A + torch.diag(regs.to(A))[None]                   # b,k,k
     rhs = Aw @ colors.to(Aw.dtype)                                # b,k,3
-    return torch.linalg.inv(lhs) @ rhs
+    return torch.linalg.inv_ex(lhs).inverse @ rhs
 
 
 def sh_predict(directions: torch.Tensor, theta: torch.Tensor,

@@ -41,12 +41,17 @@ of the recorder between them read as one). A span keeps its name, its parent
 CUDA, a pair of timing events on the current stream, placed on the host
 clock after the session as the anchor's time plus their time from the
 anchor. Nothing is recorded while the current stream is being captured
-into a CUDA graph (a replay runs no Python). What reads them:
-``portbench/pb/program_spans.py``.
+into a CUDA graph (a replay runs no Python), with one exception: under a
+segmented capture (``utils/graphs.py``) a span cuts the recording into
+graphs and is opened again around them at each replay, and ``count`` and
+the tallies wrapped by ``per_launch`` (the gather's launch count) are kept
+with the graph being captured and made at each of its replays. What reads
+them: ``portbench/pb/program_spans.py``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from collections import defaultdict
@@ -291,6 +296,33 @@ class _Recorder:
 
 _RECORDER = _Recorder()
 _OFF = contextlib.nullcontext()
+# the segmented capture under way (utils/graphs.py: SegmentedGraph), if any
+_capture = None
+
+
+@contextlib.contextmanager
+def capturing(graph):
+    """Hand spans and ``per_launch`` tallies to ``graph`` (a
+    ``SegmentedGraph`` capturing) inside the block."""
+    global _capture
+    _capture = graph
+    try:
+        yield
+    finally:
+        _capture = None
+
+
+def per_launch(fn):
+    """Wrap ``fn``, a host tally of device work (a counter, a launch
+    count): called, it tallies now, or, under a segmented capture, at each
+    replay of the graph being captured (which launches that work)."""
+    @functools.wraps(fn)
+    def tally(*args):
+        if _capture is not None:
+            _capture.tally(fn, args)
+        else:
+            fn(*args)
+    return tally
 
 
 class _Span:
@@ -310,7 +342,10 @@ class _Span:
 
 def span(name: str):
     """``with span(name):`` a span of the port (see the module's doc);
-    a shared null context while no profiler session is active."""
+    a shared null context while no profiler session is active; a cut of
+    the recording under a segmented capture."""
+    if _capture is not None:
+        return _capture.boundary(name)
     if _profiling():
         return _Span(name)
     if _RECORDER.live:
@@ -318,6 +353,7 @@ def span(name: str):
     return _OFF
 
 
+@per_launch
 def count(name: str, n: float) -> None:
     """Add ``n`` to the counter ``name`` while a profiler session is
     active."""
