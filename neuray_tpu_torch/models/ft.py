@@ -51,6 +51,7 @@ from neuray_tpu_torch.parallel import sharding as P
 from neuray_tpu_torch.utils.config import load_cfg
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
+from neuray_tpu_torch.utils.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -249,20 +250,23 @@ class FtRenderer(nn.Module):
         ``generator``); with ``use_self_hit_prob`` the query view's own
         ray_feats (view que_i) encoded with its image for the
         consistency path. On a ``mesh`` of more than one rank, this
-        rank's slice of the rays (``_render_shard``)."""
+        rank's slice of the rays (``_render_shard``). The encodes (the ref
+        views' and the query's own) are the span ``ft.encode``
+        (``utils/profiling.py``)."""
         dev = self.ray_feats.device
         idx = torch.from_numpy(np.asarray(ref_idx, np.int64)).to(dev)
         ref = self._slice_ref(idx)
-        img_feats, ray_feats = self.net.encode_scene(
-            ref, self.ray_feats.index_select(0, idx))
-        ref_c = self.net.build_gather_cache(
-            dict(ref, img_feats=img_feats, ray_feats=ray_feats))
-        que_c = dict(que)
-        if self.render_cfg.use_self_hit_prob:
-            que_raw = self.ray_feats.index_select(
-                0, torch.tensor([int(que_i)], device=dev))
-            _, que_c["ray_feats"] = self.net.encode_scene(
-                {"imgs": que["imgs"]}, que_raw)
+        with span("ft.encode"):
+            img_feats, ray_feats = self.net.encode_scene(
+                ref, self.ray_feats.index_select(0, idx))
+            ref_c = self.net.build_gather_cache(
+                dict(ref, img_feats=img_feats, ray_feats=ray_feats))
+            que_c = dict(que)
+            if self.render_cfg.use_self_hit_prob:
+                que_raw = self.ray_feats.index_select(
+                    0, torch.tensor([int(que_i)], device=dev))
+                _, que_c["ray_feats"] = self.net.encode_scene(
+                    {"imgs": que["imgs"]}, que_raw)
         if mesh is None or mesh.size == 1:
             return self.net.render_chunk(ref_c, que_c, True, generator)
         return self._render_shard(ref_c, que_c, generator, mesh)

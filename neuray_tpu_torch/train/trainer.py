@@ -51,7 +51,12 @@ from neuray_tpu_torch.train.lr import name2lr_manager
 from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
-from neuray_tpu_torch.utils.profiling import span
+from neuray_tpu_torch.utils.profiling import count, recording, span
+
+# the bytes an Adam step must move a parameter, whatever implements it:
+# the parameter and its two moments, each f32, read and written once (the
+# gradient's read is left out: a fused update need not materialise it)
+ADAM_BYTES = 24
 
 VAL_KEEP = ("pixel_colors_nr", "pixel_colors_nr_fine", "pixel_colors_dr",
             "pixel_colors_dr_fine")
@@ -420,8 +425,9 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
     ``fn.names``).
     Returns each loss's mean and ``loss_total``. The backward and the
     zero gradients are the span ``step.backward``; the loss values' read
-    back (or average) and Adam's step, ``step.update``
-    (``utils/profiling.py``)."""
+    back (or average) and Adam's step, ``step.update``, which counts
+    ``adam.bytes`` (``ADAM_BYTES`` a parameter stepped;
+    ``utils/profiling.py``)."""
     means = {k: v.mean() for k, v in losses.items()}
     total = sum(v for k, v in means.items() if k.startswith("loss"))
     with span("step.backward"):
@@ -442,6 +448,8 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
+        if recording():
+            count("adam.bytes", ADAM_BYTES * sum(p.numel() for p in params))
     return values
 
 

@@ -26,8 +26,8 @@ by a synchronize of the current stream, as the JAX class blocks on its
 A stage on the CPU (``sync`` None or a CPU tensor) has host time only,
 and ``report()`` says so.
 
-The recorder (``span``, ``count``, ``recorded``) keeps the port's spans
-at its layers' boundaries and its counters, and only where a
+The recorder (``span``, ``count``, ``recording``, ``recorded``) keeps the
+port's spans at its layers' boundaries and its counters, and only where a
 ``torch.profiler`` session (of any activity) is active: on the thread
 that entered it and on the threads that inherit its state, as autograd's
 do. Off, ``span`` is one check and hands back a shared null context,
@@ -361,6 +361,12 @@ def count(name: str, n: float) -> None:
         _RECORDER.add(name, n)
     elif _RECORDER.live:
         _RECORDER.end()
+
+
+def recording() -> bool:
+    """Whether ``span`` and ``count`` record now (a profiler session is
+    active): a caller whose count takes work to reckon asks first."""
+    return bool(_profiling())
 
 
 def recorded() -> Recorded:
