@@ -2104,6 +2104,10 @@ def train_phase(GA, dev, root, weights, parent=None):
     train_step = trainer.train_step
 
     def timed_step(batch):
+        if len(steps) == n_steps - 1:
+            # the last step eager (a key met anew): kept_gather sees its
+            # coords, which a replay from CUDA graphs would not show it
+            trainer.step_graphs.clear()
         torch.cuda.synchronize()
         fwd, bwd = GA.LAUNCHES, GA.BACKWARD_LAUNCHES
         t0 = time.perf_counter()
@@ -3052,6 +3056,9 @@ def cv_cli_phase(GA, R, dev):
     own_forward = CostVolumeInitNet.forward
 
     def timed_init(self, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            # a step recorded in CUDA graphs: its replays are not timed
+            return own_forward(self, *args, **kwargs)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3070,17 +3077,19 @@ def cv_cli_phase(GA, R, dev):
         CostVolumeInitNet.forward = own_forward
     step_s = check_cli_steps(steps, CV_CLI_STEPS, 0, "cost-volume training")
     torch.cuda.synchronize()
+    # the steps that ran eagerly, and the eager runs of the recorded ones
     init_ms = [a.elapsed_time(b) for a, b in init_spans]
+    init_ms = init_ms[GEN_CLI_WARMUP:] or init_ms
     timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
-    share = np.median(init_ms[GEN_CLI_WARMUP:len(steps)]) / (1e3 * step_s)
+    share = np.median(init_ms) / (1e3 * step_s)
     fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
     vis = {k: check_vis(trainer.model_dir, k, v, CV_CLI_STEPS)
            for k, v in val.items()}
     log(f"phase 13 training: {CV_CLI_STEPS} steps ({GEN_CLI_WARMUP} warm-up)"
         f": step median {step_s:.4f} s = {1 / step_s:.2f} steps/s (range "
         f"{timed.min():.4f}-{timed.max():.4f} s), cost-volume init net "
-        f"median {np.median(init_ms[GEN_CLI_WARMUP:len(steps)]):.1f} ms a "
-        f"step (share {share:.3f} of the step), peak memory "
+        f"median {np.median(init_ms):.1f} ms over {len(init_ms)} eager "
+        f"runs (share {share:.3f} of the step), peak memory "
         f"{steps[-1]['peak'] / 2**30:.2f} GiB, run {wall:.1f} s; phase "
         f"{launches} + {backward} backward; fern psnr_nr_fine "
         f"{fern_psnr:.3f} dB, vis_img (whole, gt panel) "
@@ -3465,9 +3474,9 @@ FAST_CLI_VAL_SETS = ("llff_fern",)
 def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
     """Phase 15a: the fast training config through the CLI (``FAST_CLI_*``)
     on phase 12's data (written, ``NEURAY_DATA_ROOT`` set): every step's
-    gathers held (``check_cli_steps``), each step's diff gather on the
-    half grid of that step's reference images ([rfn, ceil(h/2),
-    ceil(w/2), 4]), steps/s beside phase 12's, a profiled step, the
+    gathers held (``check_cli_steps``), the diff gather of each batch key's
+    eager steps on the half grid of its reference images ([rfn,
+    ceil(h/2), ceil(w/2), 4]), steps/s beside phase 12's, a profiled step, the
     validation's psnr_nr_fine on fern; the half-grid diff gather of a 400x608 crop
     ([8, 200, 304, 4]) timed on its real coordinates (``kernel_row``),
     and the 64-ch map's rows (``real_coord_rows``). Returns (launches by
@@ -3478,9 +3487,12 @@ def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
     diff, kept, own = [], {}, N.gather_bilinear_border
 
     def seen(feats, pts):
-        diff.append(tuple(feats.shape))
-        kept.setdefault(tuple(feats.shape), (feats.detach().clone(),
-                                             pts.detach().clone()))
+        # the training steps' eager runs; a replayed step runs no Python
+        if torch.is_grad_enabled() and \
+                not torch.cuda.is_current_stream_capturing():
+            diff.append(tuple(feats.shape))
+            kept.setdefault(tuple(feats.shape), (feats.detach().clone(),
+                                                 pts.detach().clone()))
         return own(feats, pts)
 
     N.gather_bilinear_border = seen
@@ -3493,9 +3505,12 @@ def fast_cli_phase(GA, R, dev, gen_step_s, parent=None):
     step_s = check_cli_steps(steps, FAST_CLI_STEPS, 1, "fast training")
     want = [(v, -(-h // 2), -(-w // 2), 4) for v, h, w, _ in
             (s["shape"] for s in steps)]
-    if diff[:len(steps)] != want:
+    # each batch key's first step runs eagerly, and its replays launch
+    # what its recording did: every shape is seen, in the order first met
+    if list(dict.fromkeys(diff)) != list(dict.fromkeys(want)):
         raise RuntimeError(f"phase 15a diff gathers on maps "
-                           f"{diff[:len(steps)]}, the half grids {want}")
+                           f"{list(dict.fromkeys(diff))}, the half grids "
+                           f"{list(dict.fromkeys(want))}")
     timed = np.array([s["s"] for s in steps[GEN_CLI_WARMUP:]])
     fern_psnr = val_psnr(trainer.model_dir, "llff_fern")
     log(f"phase 15a training ({FAST_CLI_CFG}): {FAST_CLI_STEPS} steps "

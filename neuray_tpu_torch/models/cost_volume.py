@@ -13,6 +13,7 @@ MVSNet at 768x576 and 640x640 and the logits are resized back.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -33,14 +34,26 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 EVAL_RESIZE = {(768, 1024): (576, 768), (800, 800): (640, 640)}
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_norm(device: torch.device):
+    """ImageNet's mean and std on ``device``, made once: a recorded
+    training step (CUDA graphs) cannot copy from the host."""
+    with torch.inference_mode(False):
+        return tuple(torch.tensor(v, device=device)
+                     for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
 def construct_project_matrix(x_ratio: float, y_ratio: float,
                              Ks: torch.Tensor,
                              poses: torch.Tensor) -> torch.Tensor:
     """diag(x_ratio, y_ratio, 1) @ K @ pose, as [n, 4, 4] with the row
     (0, 0, 0, 1) (reference :103-111). The diagonal scales K's rows, the
     product with a diagonal matrix exactly."""
-    scale = torch.tensor([x_ratio, y_ratio, 1.0], dtype=torch.float32,
-                         device=Ks.device)
+    # made on the device: a recorded training step (CUDA graphs) cannot
+    # copy from the host
+    scale = torch.ones(3, device=Ks.device)
+    scale[0].fill_(x_ratio)
+    scale[1].fill_(y_ratio)
     prj = torch.matmul(Ks * scale[:, None], poses)          # n,3,4
     pad = torch.zeros(Ks.shape[0], 1, 4, device=Ks.device)
     pad[:, :, 3] = 1.0
@@ -110,8 +123,7 @@ class CostVolumeInitNet(nn.Module):
                 nhwc_to_nchw(x), rh, rw)) for x in (ref_imgs, src_imgs))
             ratio = rh / h
 
-        mean = torch.tensor(IMAGENET_MEAN, device=ref_imgs.device)
-        std = torch.tensor(IMAGENET_STD, device=ref_imgs.device)
+        mean, std = _imagenet_norm(ref_imgs.device)
         ref_prj = construct_project_matrix(
             0.25 * ratio, 0.25 * ratio, ref["Ks"], ref["poses"])
         src_prj = construct_project_matrix(

@@ -120,7 +120,8 @@ def get_diff_feats_subgrid(imgs: torch.Tensor, depth_norm: torch.Tensor,
     instead of rfn^2*h*w, upsampled back to [rfn, h, w, 8] by
     ``upsample_half_pixel``. Subgrid pixel i is original pixel s*i, so
     K' = diag(1/s, 1/s, 1) K."""
-    scale = torch.tensor([1.0 / s, 1.0 / s, 1.0], device=Ks.device)
+    scale = torch.full((3,), 1.0 / s, device=Ks.device)
+    scale[2].fill_(1.0)     # on the device: a recorded step cannot copy
     diff = get_diff_feats(imgs[:, ::s, ::s], depth_norm[:, ::s, ::s],
                           depth_range, poses, Ks * scale[:, None])
     return upsample_half_pixel(diff, s, *imgs.shape[1:3])

@@ -198,7 +198,10 @@ class MVSNet(nn.Module):
         depth_values [rfn, dn] -> cost logits [rfn, dn, h/4, w/4]."""
         ref_feats = self.feature(ref_imgs.permute(0, 3, 1, 2))
         src_feats = self.feature(src_imgs.permute(0, 3, 1, 2))
-        ref_prjs_inv = torch.linalg.inv(ref_prjs)
+        # inv_ex: linalg.inv's check of the factorization reads the device
+        # back, which a training step recorded in CUDA graphs may not; a
+        # camera's projection is invertible
+        ref_prjs_inv = torch.linalg.inv_ex(ref_prjs).inverse
         n_num = nn_ids.shape[1]
         costs = []
         for i in range(ref_feats.shape[0]):

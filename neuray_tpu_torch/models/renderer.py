@@ -546,14 +546,15 @@ class NeurayRenderer(nn.Module):
     def forward(self, ref: Tensors, que: Tensors, is_train: bool = True,
                 depth_loss_coords: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                src: Tensors | None = None) -> Tensors:
+                src: Tensors | None = None,
+                fine_u: torch.Tensor | None = None) -> Tensors:
         """The training forward on one ray chunk, with autograd: init net
         (on ``src`` too for the cost volume; MVSNet takes no gradient) ->
         image and vis encoders -> gather maps -> ``render_chunk`` (fine
-        draws from ``generator``), and with ``depth_loss_coords`` [rfn,
-        pn, 2] the depth-loss head. ``que`` carries ``imgs`` for
-        ``pixel_colors_gt``. f32 only: the bf16 route's weight copies are
-        detached (``blocks.ComputeCast``)."""
+        draws ``fine_u`` where given, else from ``generator``), and with
+        ``depth_loss_coords`` [rfn, pn, 2] the depth-loss head. ``que``
+        carries ``imgs`` for ``pixel_colors_gt``. f32 only: the bf16
+        route's weight copies are detached (``blocks.ComputeCast``)."""
         if self.cfg.use_bf16 and is_train:
             raise NotImplementedError("training runs in f32 only "
                                       "(RenderConfig.use_bf16=True)")
@@ -561,7 +562,7 @@ class NeurayRenderer(nn.Module):
         img_feats, ray_feats = self.encode_scene(ref, ray_feats_raw)
         ref_c = self.build_gather_cache(
             dict(ref, img_feats=img_feats, ray_feats=ray_feats))
-        outputs = self.render_chunk(ref_c, que, is_train, generator)
+        outputs = self.render_chunk(ref_c, que, is_train, generator, fine_u)
         if depth_loss_coords is not None:
             h, w = ref["imgs"].shape[1:3]
             outputs.update(self.predict_mean_for_depth_loss(

@@ -24,10 +24,32 @@ def alpha_values2hit_prob(alpha_values: torch.Tensor) -> torch.Tensor:
         log_t = torch.cat([torch.zeros_like(log_t[..., :1]), log_t[..., :-1]],
                           dim=-1)
         return alpha_values * torch.exp(log_t.to(torch.bfloat16))
-    trans = torch.cumprod(no_hit, dim=-1)
+    trans = (_Cumprod.apply(no_hit) if no_hit.requires_grad
+             else torch.cumprod(no_hit, dim=-1))
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]],
                       dim=-1)
     return alpha_values * trans
+
+
+class _Cumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis of a tensor with no zero (the
+    no-hit density is at least 1e-10), its backward PyTorch's own rule
+    for that case, reversed cumsum(out * grad) / x, without the check for
+    zeros PyTorch makes first: that check reads the device back, which a
+    training step recorded in CUDA graphs cannot."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.shape[-1] == 1:
+            return grad
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
 
 
 def composite_colors(hit_prob: torch.Tensor,

@@ -102,6 +102,13 @@ def _count(dtype_name: str, nbytes: int) -> None:
     count("gather.bytes", nbytes)
 
 
+@per_launch
+def _count_backward(nbytes: int) -> None:
+    global BACKWARD_LAUNCHES
+    BACKWARD_LAUNCHES += 1
+    count("gather.bwd_bytes", nbytes)
+
+
 # ---------------- plain versions ----------------
 
 def feature_pixel_coords(points: torch.Tensor, h: int, w: int, fh: int,
@@ -453,7 +460,6 @@ def _launch_backward(grad_out: torch.Tensor, coords: torch.Tensor,
     ``BACKWARD_LAUNCHES``: the map's gradient from ``torch.empty`` (the
     kernels write every element, zeros included) and the bins' int32
     scratch."""
-    global BACKWARD_LAUNCHES
     v, p, c = grad_out.shape
     grad_map = torch.empty((v, fh, fw, c), device=grad_out.device)
     if grad_map.numel() == 0:
@@ -466,9 +472,7 @@ def _launch_backward(grad_out: torch.Tensor, coords: torch.Tensor,
         None if mask is None else mask.data_ptr(), grad_map.data_ptr(),
         scratch.data_ptr(), v, p, fh, fw, c, frame, h, w,
         torch._C._cuda_getCurrentRawStream(index)))
-    BACKWARD_LAUNCHES += 1
-    count("gather.bwd_bytes",
-          backward_launch_bytes(v, p, c, fh, fw, mask is not None))
+    _count_backward(backward_launch_bytes(v, p, c, fh, fw, mask is not None))
     return grad_map
 
 

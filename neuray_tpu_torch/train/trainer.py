@@ -24,6 +24,13 @@ What differs from the JAX trainer:
     1e-8), its learning rate set before every update from the schedule at
     the update count, as optax counts; a parameter without a gradient gets
     a zero one, so every Adam moment moves as optax's does;
+  * on CUDA, on one rank, a step whose batch is nested dicts of tensors on
+    the device (the generalization trainer's) is replayed from CUDA graphs
+    from the second step of its shapes on (``_StepGraphs``): forward,
+    losses, backward and Adam, with no read back inside; the eager step
+    and the replay do the same work and draw the same fine u; the first
+    recording makes the Adam ``capturable``, its learning rate a device
+    tensor;
   * samples come in index order from ``torch.utils.data.DataLoader``
     (``worker_num`` spawned processes; 0 loads in this process), not from
     the JAX trainer's Prefetcher;
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import OrderedDict
 from typing import Any, Dict, Iterable, Iterator
 
 import numpy as np
@@ -49,6 +57,7 @@ from neuray_tpu_torch.parallel import sharding as P
 from neuray_tpu_torch.train.losses import build_losses
 from neuray_tpu_torch.train.lr import name2lr_manager
 from neuray_tpu_torch.train.metrics import name2key_metrics, name2metrics
+from neuray_tpu_torch.utils import graphs
 from neuray_tpu_torch.utils.device import resolve_device
 from neuray_tpu_torch.utils.params import init_like_flax
 from neuray_tpu_torch.utils.profiling import count, recording, span
@@ -107,10 +116,12 @@ class BaseTrainer:
     parameters are trained) and supplies ``_init_state`` (a fresh state,
     with no checkpoint to resume), ``_load_state`` (a checkpoint's
     ``params``), ``_batches`` (the batches from a step to ``total_step``),
-    ``_losses`` (a batch -> its losses) and ``_val_sets`` (each val set's
-    log name, the name of its ``vis_img`` folder and its views'
-    outputs). On several ranks (``mesh``) the module docstring's rules
-    hold: rank 0 writes, the gradients are averaged."""
+    ``_losses`` (a batch, and its draws where given -> its losses),
+    ``_draw_shape`` where its batches may replay from CUDA graphs
+    (``_graphable``), and ``_val_sets`` (each val set's log name, the name
+    of its ``vis_img`` folder and its views' outputs). On several ranks
+    (``mesh``) the module docstring's rules hold: rank 0 writes, the
+    gradients are averaged."""
 
     default_cfg: Dict[str, Any] = {}
     # also validate at the last step (the gen trainer does; finetuning
@@ -142,17 +153,21 @@ class BaseTrainer:
                             for m in self.cfg["val_metric"]]
         self.key_metric = name2key_metrics[self.cfg["key_metric_name"]]
         self.generator = torch.Generator()
+        self.step_graphs = _StepGraphs()
         self.optimizer = None
         self.opt_count = 0       # Adam updates made with this state
 
     # ---------------- state ----------------
 
     def build_optimizer(self) -> None:
-        """A fresh Adam over ``model``'s parameters as they stand."""
+        """A fresh Adam over ``model``'s parameters as they stand (made
+        ``capturable`` when a step is first recorded: ``_capturable``).
+        Drops every recorded step."""
         self.params = list(self.model.parameters())
         self.optimizer = torch.optim.Adam(self.params, lr=self.schedule(0),
                                           betas=(0.9, 0.999), eps=1e-8)
         self.opt_count = 0
+        self.step_graphs.clear()
 
     def _save(self, step: int, best_metric: float, path: str = "ckpt.pt"):
         if not self.mesh.is_main:
@@ -202,22 +217,45 @@ class BaseTrainer:
     def _batches(self, step: int) -> Iterator[Any]:
         raise NotImplementedError
 
-    def _losses(self, batch) -> Dict[str, torch.Tensor]:
+    def _losses(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def _draw_shape(self, batch) -> tuple | None:
+        """The shape of the step's random draws from ``generator``, which
+        a step replayed from CUDA graphs draws before it and hands
+        ``_losses`` as ``draws``; None where it draws none. Asked only of
+        a batch that may replay (``_graphable``)."""
         raise NotImplementedError
 
     def train_step(self, batch) -> Dict[str, float]:
         """One Adam update on one batch: the training forward and losses
         (``_losses``), total = the sum of the means of the ``loss*``
         entries, backward, step. Returns each loss's mean and
-        ``loss_total``. The forward and losses are the span
-        ``step.forward`` (``utils/profiling.py``)."""
-        with span("step.forward"):
-            losses = self._losses(batch)
-        metrics = adam_update(self.optimizer, self.params,
-                              self.schedule(self.opt_count), losses,
-                              self.mesh, self.loss_fn.names)
+        ``loss_total``, read back once. The forward and losses are the
+        span ``step.forward`` (``utils/profiling.py``). A batch that may
+        replay (``_graphable``) comes from CUDA graphs from the second
+        step of its key on (``_StepGraphs``); each step counts
+        ``train.graph_steps`` (replayed) or ``train.eager_steps``."""
+        lr = self.schedule(self.opt_count)
+        entry = self.step_graphs.entry(self, batch)
+        if entry is None:
+            count("train.eager_steps", 1)
+            with span("step.forward"):
+                losses = self._losses(batch)
+            metrics = adam_update(self.optimizer, self.params, lr, losses,
+                                  self.mesh, self.loss_fn.names)
+        else:
+            set_lr(self.optimizer, lr)
+            metrics = read_back(entry.run(self))
         self.opt_count += 1
         return metrics
+
+    def _device_step(self, batch, draws) -> Dict[str, torch.Tensor]:
+        """The step a recording captures: the forward and losses on
+        ``batch`` with the fine draws ``draws``, and ``adam_step``."""
+        with span("step.forward"):
+            losses = self._losses(batch, draws)
+        return adam_step(self.optimizer, self.params, losses)
 
     # ---------------- main loop ----------------
 
@@ -376,13 +414,24 @@ class Trainer(BaseTrainer):
             return x
         return {k: move(v) for k, v in sample.items() if k != "scene_name"}
 
-    def _losses(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _losses(self, batch: Dict[str, Any],
+                draws: torch.Tensor | None = None
+                ) -> Dict[str, torch.Tensor]:
         """The training forward of one sample (tensors on the device)
-        and its losses."""
+        and its losses; the fine sampler's u ``draws`` where given, else
+        drawn from ``generator``."""
         outputs = self.renderer(batch["ref"], batch["que"], True,
                                 batch.get("depth_loss_coords"),
-                                self.generator, batch.get("src"))
+                                self.generator, batch.get("src"), draws)
         return self.loss_fn(outputs, batch)
+
+    def _draw_shape(self, batch: Dict[str, Any]) -> tuple | None:
+        """The fine sampler's u, [qn, rn, fine samples]; None without
+        hierarchical sampling."""
+        c = self.renderer.cfg
+        if not c.use_hierarchical_sampling:
+            return None
+        return (*batch["que"]["coords"].shape[:2], c.fine_depth_sample_num)
 
     # ---------------- validation ----------------
 
@@ -414,19 +463,36 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
                 lr: float, losses: Dict[str, torch.Tensor],
                 mesh: P.Mesh | None = None,
                 names: Iterable[str] = ()) -> Dict[str, float]:
-    """One update of ``optimizer`` at ``lr`` on ``losses`` (name -> per-view
-    or per-query loss): total = the sum of the means of the ``loss*``
-    entries, backward, and a zero gradient for each of ``params`` without
-    one (so every Adam moment moves as optax's does, and every rank
-    reduces the same set). On a ``mesh`` of more than one rank the
-    gradients and the loss values are then averaged over the ranks
-    (``average_gradients``: a loss only some ranks have, over those;
-    ``names``, every loss name a rank may report, ``build_losses``'
-    ``fn.names``).
-    Returns each loss's mean and ``loss_total``. The backward and the
-    zero gradients are the span ``step.backward``; the loss values' read
-    back (or average) and Adam's step, ``step.update``, which counts
-    ``adam.bytes`` (``ADAM_BYTES`` a parameter stepped;
+    """One update of ``optimizer`` at ``lr`` (``set_lr``) on ``losses``
+    (name -> per-view or per-query loss): ``adam_step``, the loss values
+    read back (``read_back``) before Adam's step. On a ``mesh`` of more
+    than one rank the gradients and the loss values are averaged over
+    the ranks instead (``average_gradients``: a loss only some ranks
+    have, over those; ``names``, every loss name a rank may report,
+    ``build_losses``' ``fn.names``). Returns each loss's mean and
+    ``loss_total``."""
+    set_lr(optimizer, lr)
+    read = read_back
+    if mesh is not None and mesh.size > 1:
+        def read(values):
+            return P.average_gradients(params, mesh, values,
+                                       (*names, "loss_total"))
+    return adam_step(optimizer, params, losses, read)
+
+
+def adam_step(optimizer: torch.optim.Optimizer, params,
+              losses: Dict[str, torch.Tensor], read=None):
+    """The device part of an update: total = the sum of the means of the
+    ``loss*`` entries, backward, a zero gradient for each of ``params``
+    without one (so every Adam moment moves as optax's does, and every
+    rank reduces the same set), then Adam's step at the groups' learning
+    rate. Nothing in it reads the device back, so a step recorded in CUDA
+    graphs runs it, but ``read`` (values -> floats: ``read_back``, or the
+    ranks' average, which also averages the gradients) before Adam's
+    step. Returns each loss's mean and ``loss_total`` as 0-dim tensors,
+    or ``read``'s floats. The backward and the zero gradients are the
+    span ``step.backward``; ``read`` and Adam's step, ``step.update``,
+    which counts ``adam.bytes`` (``ADAM_BYTES`` a parameter stepped;
     ``utils/profiling.py``)."""
     means = {k: v.mean() for k, v in losses.items()}
     total = sum(v for k, v in means.items() if k.startswith("loss"))
@@ -436,26 +502,242 @@ def adam_update(optimizer: torch.optim.Optimizer, params,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    values = {k: v.detach() for k, v in {**means, "loss_total": total}.items()}
     with span("step.update"):
-        values = {k: v.detach()
-                  for k, v in {**means, "loss_total": total}.items()}
-        if mesh is not None and mesh.size > 1:
-            values = P.average_gradients(params, mesh, values,
-                                         (*names, "loss_total"))
-        else:
-            values = dict(zip(values, torch.stack(
-                list(values.values())).tolist()))
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+        if read is not None:
+            values = read(values)
         optimizer.step()
         if recording():
             count("adam.bytes", ADAM_BYTES * sum(p.numel() for p in params))
     return values
 
 
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate to ``lr``: filled into a tensor (a
+    capturable Adam's, which its recorded steps read), else replaced."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def read_back(values: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """0-dim loss values as floats, in one copy from the device."""
+    return dict(zip(values, torch.stack(list(values.values())).tolist()))
+
+
+# ---------------- training steps from CUDA graphs ----------------
+
+# the steps a trainer records (``_StepGraphs``): the depth configs'
+# default mixture meets three batch keys, a 400x600 crop padded to 400x608
+# (real_estate, real_iconic, space), GSO's 512x512 with its true depth and
+# depth-loss coords, and DTU's 1200x1600, 8 views each; their pools take
+# 6.3, 6.5 and 21.0 GB of an 80 GB H100's memory. A trainer that meets
+# more keys (the cost-volume config's source views vary in number)
+# records the first three that repeat and runs the others eagerly: a
+# recording evicted and made again costs more than the steps it saves
+KEPT_STEPS = 3
+# the keys met once and not recorded that a trainer remembers
+SEEN_KEYS = 64
+
+
+def _leaves(batch: Dict[str, Any], path: tuple = ()):
+    """(path, value) of each leaf of nested dicts, in key order."""
+    for k in sorted(batch):
+        if isinstance(batch[k], dict):
+            yield from _leaves(batch[k], (*path, k))
+        else:
+            yield (*path, k), batch[k]
+
+
+def _graphable(trainer: BaseTrainer, batch) -> bool:
+    """Whether the trainer's step on ``batch`` may come from CUDA graphs:
+    a CUDA device, one rank (the ranks' all_reduce stays eager),
+    autograd on, and every leaf of the batch a tensor on the device, in
+    nested dicts."""
+    dev = trainer.device
+    if dev.type != "cuda" or trainer.mesh.size != 1 or not (
+            torch.is_grad_enabled() and isinstance(batch, dict)):
+        return False
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return all(isinstance(v, torch.Tensor) and v.device == dev
+               for _, v in _leaves(batch))
+
+
+def _batch_key(batch: Dict[str, Any]) -> tuple:
+    """What a recorded step holds fixed of its batch: each leaf's path,
+    shape and dtype, and the first path it aliases."""
+    first: Dict[int, tuple] = {}
+    return tuple((path, tuple(v.shape), v.dtype,
+                  first.setdefault(id(v), path))
+                 for path, v in _leaves(batch))
+
+
+def _capturable(optimizer: torch.optim.Optimizer, device) -> None:
+    """Make an Adam capturable, so that a recorded step runs it: its
+    learning rate a tensor on ``device`` (``set_lr`` fills it) and its
+    step counts moved there. Nothing else of it changes."""
+    for group in optimizer.param_groups:
+        if group["capturable"]:
+            continue
+        group["capturable"] = True
+        group["lr"] = torch.tensor(group["lr"], device=device)
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(device)
+
+
+def _room(device) -> int:
+    """The bytes the card can still hand out: free, and cached unused."""
+    return (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+class _StepGraph:
+    """One training step recorded for one batch key: static copies of a
+    batch (its aliases kept) and of the step's draws, the graphs, and
+    what a replay writes: the loss values and the parameters'
+    gradients."""
+
+    def __init__(self, batch: Dict[str, Any], draw_shape, device):
+        clones: Dict[int, torch.Tensor] = {}
+
+        def static(d):
+            out = {}
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    out[k] = static(v)
+                else:
+                    if id(v) not in clones:
+                        clones[id(v)] = v.clone()
+                    out[k] = clones[id(v)]
+            return out
+
+        self.batch = static(batch)
+        self.draws = self.pinned = None
+        if draw_shape is not None:
+            self.draws = torch.empty(draw_shape, device=device)
+            self.pinned = torch.empty(draw_shape,
+                                      pin_memory=device.type == "cuda")
+        self.graph = self.out = self.grads = None
+        self.pool = 0       # the card's bytes the recording took
+
+    def stage(self, batch: Dict[str, Any], generator) -> None:
+        """Copy a step's batch into the static copies, and draw the
+        step's u from ``generator`` (as the eager step would, in the same
+        order and shape) into the pinned buffer and on to the device."""
+        seen = set()
+        for (_, v), (_, s) in zip(_leaves(batch), _leaves(self.batch)):
+            if id(v) not in seen:
+                seen.add(id(v))
+                s.copy_(v)
+        if self.draws is not None:
+            torch.rand(self.pinned.shape, generator=generator,
+                       out=self.pinned)
+            self.draws.copy_(self.pinned, non_blocking=True)
+
+    def run(self, trainer: BaseTrainer) -> Dict[str, torch.Tensor]:
+        """The step's loss values on the device: at the key's first
+        recorded step from an eager run, then captured (a capture runs
+        nothing: no update, no count); after that from a replay, the
+        parameters' gradients then the replay's."""
+        if self.graph is None:
+            eager = []
+
+            def step():
+                out = trainer._device_step(self.batch, self.draws)
+                if not eager:
+                    eager.extend(p.grad for p in trainer.params)
+                return out
+
+            # the side stream's eager run caches a step's blocks that the
+            # current stream cannot reuse: freed around the recording,
+            # which leaves its pool the card's memory it took
+            cuda = trainer.device.type == "cuda"
+            if cuda:
+                _capturable(trainer.optimizer, trainer.device)
+                torch.cuda.empty_cache()
+                free = torch.cuda.mem_get_info(trainer.device)[0]
+            graph = graphs.SegmentedGraph()
+            values, self.out = graph.record(step)
+            if cuda:
+                torch.cuda.empty_cache()
+                self.pool = max(
+                    free - torch.cuda.mem_get_info(trainer.device)[0], 0)
+            # the eager run's gradients, into the capture's
+            self.graph, self.grads = graph, [p.grad for p in trainer.params]
+            for g, e in zip(self.grads, eager):
+                if g is not e:
+                    g.copy_(e)
+                    e.record_stream(torch.cuda.current_stream())
+            count("train.eager_steps", 1)
+            return values
+        self.graph.replay()
+        if trainer.params[0].grad is not self.grads[0]:   # set all at once
+            for p, g in zip(trainer.params, self.grads):
+                p.grad = g
+        count("train.graph_steps", 1)
+        return self.out
+
+
+class _StepGraphs:
+    """A trainer's steps recorded in CUDA graphs, by batch key
+    (``_batch_key``): a key is recorded at its second step (its first runs
+    eagerly, so shapes that never repeat never capture), and its later
+    steps replay. At most ``KEPT_STEPS`` keys are recorded, and none
+    while the card's room (``_room``) is under twice the largest
+    recording's pool; the keys met after that run eagerly, and no
+    recording is dropped. A new optimizer or a new list of parameters
+    (``build_optimizer``, which also clears them) drops them all."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self.kept: Dict[tuple, _StepGraph] = {}
+        self.seen: "OrderedDict[tuple, None]" = OrderedDict()
+        self.state = None
+
+    def entry(self, trainer: BaseTrainer, batch) -> _StepGraph | None:
+        """The recording of the batch's key, staged with the batch and
+        the step's draws; None where the step runs eagerly (not
+        ``_graphable``, the key's first step, or no recording left)."""
+        if not _graphable(trainer, batch):
+            return None
+        if self.state is None or self.state[0] is not trainer.optimizer \
+                or self.state[1] is not trainer.params:
+            self.clear()
+            self.state = trainer.optimizer, trainer.params
+        key = _batch_key(batch)
+        entry = self.kept.get(key)
+        if entry is None:
+            if key not in self.seen:
+                self.seen[key] = None
+                if len(self.seen) > SEEN_KEYS:
+                    self.seen.popitem(last=False)
+                return None
+            largest = max((e.pool for e in self.kept.values()), default=0)
+            if len(self.kept) == KEPT_STEPS or (
+                    largest and _room(trainer.device) < 2 * largest):
+                return None
+            del self.seen[key]
+            entry = self.kept[key] = _StepGraph(
+                batch, trainer._draw_shape(batch), trainer.device)
+        entry.stage(batch, trainer.generator)
+        return entry
+
+
 def _restore_opt_state(optimizer: torch.optim.Optimizer,
                        saved: Dict[str, Any], strict: bool = True) -> bool:
-    """Load a saved ``optimizer.state_dict()`` into ``optimizer``.
+    """Load a saved ``optimizer.state_dict()`` into ``optimizer``; its
+    learning rate and ``capturable`` stay the optimizer's own, so a state
+    saved after steps were recorded (a capturable Adam, its learning rate
+    a device tensor: ``_capturable``) resumes into a fresh optimizer, on
+    either device.
 
     A state whose parameter count or moment shapes differ from the
     optimizer's parameters (the model changed since the checkpoint) would
@@ -479,5 +761,11 @@ def _restore_opt_state(optimizer: torch.optim.Optimizer,
                              "a fresh optimizer state.")
         print(f"WARNING: {msg}; using a FRESH optimizer state.", flush=True)
         return False
-    optimizer.load_state_dict(saved)
+    own = [{k: g[k] for k in ("lr", "capturable")}
+           for g in optimizer.param_groups]
+    optimizer.load_state_dict(dict(saved, param_groups=[
+        dict(g, capturable=o["capturable"])
+        for g, o in zip(saved["param_groups"], own)]))
+    for group, o in zip(optimizer.param_groups, own):
+        group.update(o)
     return True

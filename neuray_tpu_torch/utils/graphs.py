@@ -20,8 +20,13 @@ and copies out what a replay wrote before the next replay overwrites it.
 ``record`` runs the function once eagerly before its capture, both on a
 side stream, as ``torch.cuda.graph`` asks: the lazy set-up (cuBLAS's
 workspace for that stream, the gather's library) happens outside the
-capture. A graph that captured no work (the stretch after the last span
-closes) is dropped.
+capture. A graph that captured no work (the stretch before the first
+span opens, or after the last closes) is not replayed, but kept: the
+pool the graphs share is freed when no graph holds it, and a capture
+into a freed pool fails. A capture checks only its own thread's CUDA
+calls (``thread_local``): a DataLoader's pin-memory thread allocates
+pinned memory while a training step is captured, which in the global
+mode invalidates the capture.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ class SegmentedGraph:
         # a graph and its tallies, a span's name (it opens), or None (the
         # innermost open span closes)
         self.steps: List = []
+        self._empty: List = []
         self._graph = None
         self._tally: List = []
 
@@ -133,10 +139,11 @@ class SegmentedGraph:
 
     def _begin(self) -> None:
         self._graph, self._tally = torch.cuda.CUDAGraph(), []
-        self._graph.capture_begin(pool=self.pool)
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
 
     def _end(self) -> None:
-        # torch warns of a graph that captured nothing; it is dropped
+        # torch warns of a graph that captured nothing; it is not replayed
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             self._graph.capture_end()
@@ -146,6 +153,8 @@ class SegmentedGraph:
                 empty = True
             else:
                 warnings.warn(w.message, w.category)
-        if not empty:
+        if empty:
+            self._empty.append(self._graph)
+        else:
             self.steps.append((self._graph, self._tally))
         self._graph = None

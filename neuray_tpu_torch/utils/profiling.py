@@ -365,8 +365,10 @@ def count(name: str, n: float) -> None:
 
 def recording() -> bool:
     """Whether ``span`` and ``count`` record now (a profiler session is
-    active): a caller whose count takes work to reckon asks first."""
-    return bool(_profiling())
+    active), or keep what they are given for each replay of the graph
+    being captured: a caller whose count takes work to reckon asks
+    first."""
+    return _capture is not None or bool(_profiling())
 
 
 def recorded() -> Recorded:

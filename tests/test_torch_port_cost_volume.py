@@ -620,7 +620,7 @@ def test_trainer_passes_src_to_the_forward(monkeypatch):
 
     class Stub(torch.nn.Module):
         def forward(self, ref, que, is_train, depth_loss_coords, generator,
-                    src):
+                    src, fine_u=None):
             seen.update(src=src, ref=ref)
             return {}
 

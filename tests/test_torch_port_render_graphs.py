@@ -205,7 +205,7 @@ class FakeGraph:
     is logged."""
     log = []
 
-    def capture_begin(self, pool=None):
+    def capture_begin(self, pool=None, capture_error_mode="global"):
         self.n = len(FakeGraph.log)
         FakeGraph.log.append(("begin", self.n))
 
